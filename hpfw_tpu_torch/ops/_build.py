@@ -1,0 +1,129 @@
+"""Build, load and call the hand-written CUDA kernels in hpfw_tpu_torch/csrc.
+
+At first use, nvcc compiles every csrc/*.cu into one shared library with a
+plain C interface for sm_90a (Hopper), and ctypes loads it. The library goes
+into build/hpfw_tpu_torch/<hash of sources and flags>/ at the repository
+root, so a changed source builds anew and an unchanged one is reused. There
+is no fallback: a missing nvcc, a failed build or a failed launch raises.
+
+Each wrapper that launches a kernel adds one to its entry of LAUNCHES, so a
+run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "hpfw_tpu_torch"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libhpfw_kernels.so"
+
+LAUNCHES = {"cqt": 0, "fingerprint": 0, "score_tracks": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default home."""
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(DEFAULT_CUDA_HOME) / "bin" / "nvcc"
+    if default.is_file():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+        f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels of hpfw_tpu_torch are "
+        "compiled at first use and need the CUDA toolkit")
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu into one shared library unless it is already built."""
+    nvcc = find_nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+                          capture_output=True, text=True)
+    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build_library()))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # Every pointer and the stream are c_void_p: an undeclared argument is
+    # passed as a 32-bit int and a device address would be cut.
+    lib.hpfw_cqt_splits.argtypes = []
+    lib.hpfw_cqt_splits.restype = i32
+    lib.hpfw_cqt.argtypes = [ptr, i64, i32, i32, ptr, i32, ctypes.c_float, ptr, ptr,
+                             ptr]
+    lib.hpfw_fingerprint.argtypes = [ptr, i32, i32, ptr, i32, i32, i32, i32, i32,
+                                     ptr, ptr]
+    lib.hpfw_score_tracks.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr]
+    for fn in (lib.hpfw_cqt, lib.hpfw_fingerprint, lib.hpfw_score_tracks):
+        fn.restype = i32
+    lib.hpfw_error_string.argtypes = [i32]
+    lib.hpfw_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call a C entry point on device's current stream and count the launch.
+
+    args are the entry point's arguments before the trailing stream.
+    """
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, fn_name)(*args, stream)
+    if code != 0:
+        msg = lib.hpfw_error_string(code).decode()
+        raise RuntimeError(f"{name} kernel failed: {msg} (cudaError {code})")
+    LAUNCHES[name] += 1
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+            device: torch.device | None = None) -> None:
+    """Raise unless t is a contiguous CUDA tensor of this dtype and rank."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,117 @@
+"""CQT front end: framing, the NDFT filterbank GEMM and its log-magnitude.
+
+Counterpart of hpfw_tpu/ops/frontend.py (the plain path) and
+hpfw_tpu/ops/pallas_frontend.py (the kernel). spec = log(log_eps + |frames @
+K|), with the complex kernel K held as one real (frame_len, 2 * n_bins)
+matrix [Kre | Kim]. On a CUDA tensor this launches K1 (csrc/frontend.cu); on
+a CPU tensor it runs the plain version, cqt_from_frames_ref.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..config import HpfwConfig
+from . import _build
+from .dot import precise_matmul
+
+
+def cqt_kernel_matrix(cfg: HpfwConfig) -> np.ndarray:
+    """Dense complex NDFT kernel, shape (frame_len, n_bins), complex128.
+
+    A copy of hpfw_tpu.oracle.pipeline.cqt_kernel_matrix: bin k's kernel is a
+    window-weighted complex exponential of length N_k = ceil(Q * sr / f_k),
+    centred in the frame and normalised by N_k.
+    """
+    cfg.validate()
+    K = np.zeros((cfg.frame_len, cfg.n_bins), dtype=np.complex128)
+    q = cfg.q_factor
+    for k in range(cfg.n_bins):
+        f_k = cfg.bin_frequency(k)
+        n_k = int(np.ceil(q * cfg.sample_rate / f_k))
+        n = np.arange(n_k, dtype=np.float64)
+        if cfg.window == "hann":
+            win = 0.5 - 0.5 * np.cos(2.0 * np.pi * (n + 0.5) / n_k)
+        else:  # hamming
+            win = 0.54 - 0.46 * np.cos(2.0 * np.pi * (n + 0.5) / n_k)
+        phase = np.exp(-2j * np.pi * f_k * n / cfg.sample_rate)
+        offset = (cfg.frame_len - n_k) // 2
+        K[offset:offset + n_k, k] = win * phase / n_k
+    return K
+
+
+@functools.lru_cache(maxsize=8)
+def cqt_kernel_arrays(cfg: HpfwConfig) -> tuple[np.ndarray, np.ndarray]:
+    """The NDFT kernel as two float32 (frame_len, n_bins) matrices (re, im),
+    computed in float64 and rounded once."""
+    k = cqt_kernel_matrix(cfg)
+    return (np.ascontiguousarray(k.real, dtype=np.float32),
+            np.ascontiguousarray(k.imag, dtype=np.float32))
+
+
+@functools.lru_cache(maxsize=8)
+def kernel_matrix(cfg: HpfwConfig, device: torch.device) -> torch.Tensor:
+    """[Kre | Kim] as one contiguous (frame_len, 2 * n_bins) float32 tensor."""
+    kr, ki = cqt_kernel_arrays(cfg)
+    return torch.from_numpy(np.concatenate([kr, ki], axis=1)).to(device)
+
+
+def frame_signal(pcm: torch.Tensor, cfg: HpfwConfig) -> torch.Tensor:
+    """(S,) PCM -> (F, frame_len) frames, a view with strides (hop, 1).
+
+    Frame t = pcm[t*hop : t*hop + frame_len], identical to the oracle.
+    """
+    if cfg.n_frames(pcm.shape[0]) == 0:
+        return pcm.new_zeros((0, cfg.frame_len))
+    return pcm.unfold(0, cfg.frame_len, cfg.hop)
+
+
+def cqt_from_frames_ref(frames: torch.Tensor, cfg: HpfwConfig) -> torch.Tensor:
+    """Plain version: one f32 GEMM against [Kre | Kim], then log(eps + |X|)."""
+    reim = precise_matmul(frames, kernel_matrix(cfg, frames.device))
+    re, im = reim[:, :cfg.n_bins], reim[:, cfg.n_bins:]
+    return torch.log(cfg.log_eps + torch.sqrt(re * re + im * im))
+
+
+def cqt_kernel(frames: torch.Tensor, cfg: HpfwConfig) -> torch.Tensor:
+    """K1 on the card: (F, frame_len) f32 frames with unit inner stride (an
+    unfold view of the PCM or a contiguous matrix) -> (F, n_bins) f32."""
+    if not isinstance(frames, torch.Tensor) or frames.device.type != "cuda":
+        raise ValueError("frames must be a CUDA tensor")
+    if frames.dtype != torch.float32 or frames.dim() != 2:
+        raise ValueError(f"frames must be 2-D float32, got {frames.dtype} "
+                         f"{tuple(frames.shape)}")
+    if frames.shape[1] != cfg.frame_len:
+        raise ValueError(f"frames have {frames.shape[1]} samples, config says "
+                         f"{cfg.frame_len}")
+    f = frames.shape[0]
+    out = torch.empty((f, cfg.n_bins), dtype=torch.float32, device=frames.device)
+    if f == 0:
+        return out
+    if frames.stride(1) != 1 or frames.stride(0) < 0:
+        raise ValueError(f"frames need unit inner stride, got {frames.stride()}")
+    k = kernel_matrix(cfg, frames.device)
+    partials = torch.empty((_build.library().hpfw_cqt_splits(), f, 2 * cfg.n_bins),
+                           dtype=torch.float32, device=frames.device)
+    _build.launch("cqt", "hpfw_cqt", frames.device,
+                  frames.data_ptr(), frames.stride(0), f, cfg.frame_len,
+                  k.data_ptr(), cfg.n_bins, cfg.log_eps, partials.data_ptr(),
+                  out.data_ptr())
+    return out
+
+
+def cqt_from_frames(frames: torch.Tensor, cfg: HpfwConfig) -> torch.Tensor:
+    """(F, frame_len) f32 frames -> (F, n_bins) log-magnitude CQT."""
+    if frames.device.type == "cuda":
+        return cqt_kernel(frames, cfg)
+    if frames.device.type == "cpu":
+        return cqt_from_frames_ref(frames, cfg)
+    raise ValueError(f"no CQT for device {frames.device}")
+
+
+def cqt(pcm: torch.Tensor, cfg: HpfwConfig) -> torch.Tensor:
+    """(S,) PCM -> (F, n_bins) float32 log-magnitude CQT on pcm's device."""
+    return cqt_from_frames(frame_signal(pcm.to(torch.float32), cfg), cfg)

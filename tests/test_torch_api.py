@@ -1,0 +1,128 @@
+"""The port's public API on the CPU vs hpfw_tpu.api: the slice end to end."""
+
+import numpy as np
+import pytest
+import torch
+
+from hpfw_tpu import api as jax_api
+from hpfw_tpu import oracle
+from hpfw_tpu.io import synth
+from hpfw_tpu_torch import api
+from hpfw_tpu_torch.config import HpfwConfig
+from tests.test_tpu_pipeline import assert_bits_match_with_margin_audit
+
+
+def _port(cfg):
+    return HpfwConfig.from_json(cfg.to_json())
+
+
+@pytest.fixture(scope="module")
+def catalog(cfg):
+    """6 x 4 s synthetic tracks and oracle-learned filters (SKILL recipe)."""
+    tracks = synth.synth_catalog(6, 4.0, cfg)
+    filters = oracle.learn_filters(tracks[:3], cfg).astype(np.float32)
+    return tracks, filters
+
+
+@pytest.fixture(scope="module")
+def dbs(cfg, catalog):
+    tracks, filters = catalog
+    ids = {f"t{i}": t for i, t in enumerate(tracks)}
+    return (api.build_db(ids, filters, _port(cfg)),
+            jax_api.build_db(ids, filters, cfg))
+
+
+def test_db_prints_agree_within_margin_audit(cfg, catalog, dbs):
+    tracks, filters = catalog
+    port_db, jax_db = dbs
+    assert port_db.track_ids == jax_db.track_ids
+    np.testing.assert_array_equal(port_db.lengths, jax_db.lengths)
+    assert port_db.prints.shape == jax_db.prints.shape and port_db.prints.dtype == np.uint32
+    for i, t in enumerate(tracks):
+        n = port_db.lengths[i]
+        assert_bits_match_with_margin_audit(port_db.prints[i, :n], jax_db.prints[i, :n],
+                                            oracle.delta_margins(t, filters, cfg))
+
+
+@pytest.mark.parametrize("query", ["noisy_excerpt", "longer_than_every_track"])
+def test_match_equals_jax(cfg, catalog, dbs, query):
+    tracks, filters = catalog
+    port_db, _ = dbs
+    if query == "noisy_excerpt":
+        pcm = synth.make_query(tracks[4], 0.9, 2.0, cfg, noise_db=-15.0, seed=3)
+    else:
+        pcm = np.concatenate([tracks[2], tracks[5][: cfg.sample_rate]])
+    q = api.fingerprint(pcm, filters, _port(cfg))
+    assert q.dtype == np.uint32
+    # Both matchers over the same prints, so the comparison is exact.
+    jax_db = jax_api.FingerprintDB(cfg, filters, port_db.track_ids, port_db.prints,
+                                   port_db.lengths)
+    got = api.match(q, port_db, top_k=4)
+    want = jax_api.match(q, jax_db, top_k=4)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert got[1].dtype == want[1].dtype and got[2].dtype == want[2].dtype
+    if query == "noisy_excerpt":
+        assert got[0][0] == "t4"
+        assert abs(int(got[2][0]) - round(0.9 * cfg.sample_rate / cfg.hop)) <= 1
+    else:
+        assert q.shape[0] > port_db.prints.shape[1]
+        assert got[0][0] == "t2" and int(got[2][0]) == 0
+
+
+def test_fingerprint_bucketing_exact(cfg, catalog):
+    _, filters = catalog
+    port = _port(cfg)
+    for extra in [0, 17, cfg.hop - 1, 3 * cfg.hop + 5]:
+        pcm = synth.synth_track(40, 1.7, cfg)
+        pcm = pcm[: len(pcm) - extra]
+        unbucketed = api.fingerprint(pcm, filters, port, bucket_s=0)
+        bucketed = api.fingerprint(pcm, filters, port, bucket_s=0.25)
+        assert bucketed.shape == unbucketed.shape == (cfg.n_hashprints(len(pcm)), 2)
+        np.testing.assert_array_equal(bucketed, unbucketed)
+
+
+def test_fingerprint_batch_equals_per_track(cfg, catalog):
+    tracks, filters = catalog
+    port = _port(cfg)
+    n = min(len(t) for t in tracks[:3]) - 123
+    batch = np.stack([t[:n] for t in tracks[:3]])
+    got = api.fingerprint_batch(batch, filters, port)
+    assert got.shape == (3, cfg.n_hashprints(n), 2) and got.dtype == np.uint32
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], api.fingerprint(batch[i], filters, port,
+                                                              bucket_s=0))
+    assert api.fingerprint_batch(batch[:, :100], filters, port).shape == (3, 0, 2)
+
+
+def test_db_save_load_across_packages(tmp_path, cfg, dbs):
+    port_db, jax_db = dbs
+    pairs = [(port_db, jax_api.FingerprintDB, "port.npz"),
+             (jax_db, api.FingerprintDB, "jax.npz")]
+    for src, loader, name in pairs:
+        path = str(tmp_path / name)
+        src.save(path)
+        back = loader.load(path)
+        assert back.cfg.to_json() == src.cfg.to_json()
+        assert back.track_ids == src.track_ids
+        for field in ("prints", "lengths", "filters"):
+            a, b = getattr(back, field), getattr(src, field)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+def test_short_input_and_devices(cfg, catalog):
+    _, filters = catalog
+    port = _port(cfg)
+    out = api.fingerprint(np.zeros(10, np.float32), filters, port)
+    assert out.shape == (0, 2) and out.dtype == np.uint32
+    pcm = synth.synth_track(12, 1.0, cfg)
+    from_tensor = api.fingerprint(pcm, torch.from_numpy(filters), port)
+    np.testing.assert_array_equal(from_tensor, api.fingerprint(pcm, filters, port,
+                                                               device="cpu"))
+    with pytest.raises(ValueError):
+        api.fingerprint(pcm, filters[:-1], port)
+    with pytest.raises(ValueError):
+        api.FingerprintDB(port, filters, ["a"], np.zeros((1, 4, 2), np.uint32),
+                          np.array([5], np.int32))
