@@ -15,7 +15,19 @@ Phases, each printing its own line; any failure raises and exits non-zero:
   5. a dense scan of a planted 1,000 x 7,701-print catalog;
   6. every kernel launched during phase 4, by the launch counters;
   7. times of each kernel and its plain version, the 16 x 240 s extraction
-     realtime factor, and the config-1 query latency.
+     realtime factor, and the config-1 query latency;
+  8. the catalog of BASELINE config 4 at benchmarks/config4_scale.py's own
+     defaults: 100,000 random tracks x 60 s, 20 planted noisy 10 s queries;
+then, for each of HpfwConfig() (phase-aligned plants) and
+HpfwConfig.catalog_scale() (misphased plants), on a TwoStageDB on the card:
+  9. K4 (csrc/coarse.cu) at its surfaces and K5 (csrc/fine.cu) against their
+     plain versions at the catalog's shapes, exactly equal;
+ 10. the slice: TwoStageDB.match on each query and match_batch in batches of
+     8, 8 and 4; every query ranks its planted track first at the (score,
+     offset) of K3's dense scan of that track, and batched equals single;
+ 11. the kernels launched during phase 10, by the launch counters;
+ 12. times of K4, K5 and their plain versions, the single-query match
+     latency and the batch-of-8 queries per second.
 The last two lines are a JSON object of per-kernel results and
 {"ok": true, "device": {...}}. Imports nothing of jax or hpfw_tpu.
 """
@@ -39,6 +51,12 @@ BATCH = 16                                  # bench.py's batch
 CAT_TRACKS, CAT_PRINTS, CAT_QUERY = 1000, 7701, 380   # 180 s tracks, 10 s query
 CAT_PLANT_TRACK, CAT_PLANT_OFFSET = 617, 4321
 CAT_COMPARE = 64
+# BASELINE config 4, benchmarks/config4_scale.py:49 defaults.
+CFG4_TRACKS, CFG4_SECONDS, CFG4_QUERY_SECONDS, CFG4_QUERIES = 100_000, 60, 10, 20
+CFG4_FLIP = 0.15
+CFG4_BATCHES = (8, 8, 4)
+KERNEL_ROWS = 8192          # K4 rows scanned, and pooled rows a query for the rescan
+FINE_QUERIES, FINE_CANDIDATES = 8, 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -110,11 +128,18 @@ def phase_build() -> None:
 def main() -> None:
     card = phase_device()
     phase_build()
-    run(card, torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    kernels = run(card, dev)
+    kernels += run_catalog(card, dev)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run(card: str, dev: torch.device) -> None:
-    """Phases 3-7 on dev, once the card is checked and the kernels built."""
+def run(card: str, dev: torch.device) -> list[dict]:
+    """Phases 3-7 on dev, once the card is checked and the kernels built.
+    Returns the per-kernel results of K1-K3."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
     from hpfw_tpu_torch.filters import filters_from_jax, fix_eigenvector_signs
@@ -326,10 +351,202 @@ def run(card: str, dev: torch.device) -> None:
          "launches": launches["score_tracks"], "max_abs_err": k3_err,
          "ms": measured["K3 config1_db"][0], "plain_ms": measured["K3 config1_db"][1]},
     ]
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    return kernels
+
+
+def noisy_excerpt(rng, track_prints, start, n, flip_rate=CFG4_FLIP):
+    """Excerpt with flip_rate of its bits flipped, as benchmarks/config4_scale.py
+    makes its queries."""
+    q = track_prints[start:start + n].copy()
+    shifts = np.arange(32, dtype=np.uint32)
+    flip = np.stack([
+        np.bitwise_or.reduce(
+            (rng.random((n, 32)) < flip_rate).astype(np.uint32) << shifts, axis=1),
+        np.bitwise_or.reduce(
+            (rng.random((n, 32)) < flip_rate).astype(np.uint32) << shifts, axis=1),
+    ], axis=1)
+    return np.bitwise_xor(q, flip)
+
+
+def timed_pair(kern, plain) -> tuple[float, float]:
+    """(kernel ms, plain ms), each the mean of two turns: plain, kernel,
+    kernel, plain."""
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def run_catalog(card: str, dev: torch.device) -> list[dict]:
+    """Phases 8-12: BASELINE config 4 through TwoStageDB, under HpfwConfig()
+    and HpfwConfig.catalog_scale(). Returns the per-kernel results of K4, K5."""
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.match import matcher
+    from hpfw_tpu_torch.match.scaled import TwoStageDB, _phase_variants
+    from hpfw_tpu_torch.ops import _build, coarse_scan, fine
+
+    # ---- phase 8: the config-4 catalog and its planted queries ----
+    t0 = time.perf_counter()
+    fps = HpfwConfig().frames_per_second
+    n_prints, n_q = int(CFG4_SECONDS * fps), int(CFG4_QUERY_SECONDS * fps)
+    rng = np.random.default_rng(0)
+    prints = rng.integers(0, 2 ** 32, (CFG4_TRACKS, n_prints, 2), dtype=np.uint32)
+    lengths = np.full(CFG4_TRACKS, n_prints, np.int32)
+    truth = rng.choice(CFG4_TRACKS, CFG4_QUERIES, replace=False)
+    aligned = 16 * rng.integers(0, (n_prints - n_q) // 16, CFG4_QUERIES)
+    runs = {
+        "default": (HpfwConfig(), aligned),
+        "catalog_scale": (HpfwConfig.catalog_scale(),
+                          aligned + 1 + np.arange(CFG4_QUERIES) % 15),   # r = 1..15
+    }
+    queries = {name: np.stack([noisy_excerpt(rng, prints[t], int(o), n_q)
+                               for t, o in zip(truth, offs)])
+               for name, (_, offs) in runs.items()}
+    ids = [str(i) for i in range(CFG4_TRACKS)]
+    log(f"phase 8 catalog: {CFG4_TRACKS} x {n_prints} prints ({prints.nbytes / 1e9:.2f} GB), "
+        f"{CFG4_QUERIES} noisy {n_q}-print queries ({CFG4_FLIP:.0%} of bits flipped) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    measured, errs, launches = {}, {}, {}
+    for name, (cfg, offs) in runs.items():
+        t0 = time.perf_counter()
+        db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32), ids,
+                               prints, lengths, device=dev)
+        ts = TwoStageDB(db)
+        torch.cuda.synchronize()
+        qs_np = queries[name]
+        qs = torch.from_numpy(qs_np.view(np.int32)).to(dev)
+        gib = sum(x.numel() * x.element_size() for x in {id(t): t for t in (
+            ts.prints, ts.db_c, ts.db_c1)}.values()) / 2 ** 30
+        log(f"  {name}: TwoStageDB on the card in {time.perf_counter() - t0:.1f} s "
+            f"(prints + coarse DBs {gib:.2f} GiB; db_c {tuple(ts.db_c.shape)}, db_c1 "
+            f"{tuple(ts.db_c1.shape)}, phases {ts.query_phases}, prefilter {ts.prefilter}, "
+            f"pass-1 channels {ts.prefilter_channels}, pool {cfg.fine_candidates})")
+        # The exact answer for each planted track: K3's dense scan of that track.
+        want = []
+        for q, t in zip(qs, truth):
+            s, o = matcher.score_tracks_kernel(q, ts.prints[t:t + 1], ts.lengths[t:t + 1])
+            want.append((str(t), int(s[0]), int(o[0])))
+
+        # ---- phase 9: K4 and K5 against their plain versions ----
+        rows = ts.db_c[:KERNEL_ROWS]
+        checks = {}
+        if name == "default":
+            qc = _phase_variants(qs[:1], stride=ts.stride, phases=1, kind=ts.coarse_kind,
+                                 channels=ts.coarse_channels)[0][0, 0]
+            checks["coarse_scan"] = (
+                f"{KERNEL_ROWS} rows x {ts.lc_true} windows x {ts.coarse_channels} "
+                f"channels, one {qc.shape[0]}-window query",
+                lambda: coarse_scan.coarse_scan_kernel(qc, rows, lc_true=ts.lc_true),
+                lambda: coarse_scan.coarse_scan_ref(qc, rows, lc_true=ts.lc_true))
+            f_tracks = torch.randint(0, CFG4_TRACKS, (FINE_QUERIES, FINE_CANDIDATES),
+                                     dtype=torch.int32, device=dev)
+            n_fine = 2 * ts.stride + 1
+            span = n_q + n_fine - 1
+            f_starts = torch.randint(0, n_prints - span + 1, f_tracks.shape,
+                                     dtype=torch.int32, device=dev)
+            # Shorter lengths, so that bands run past max(len - N, 0) and some
+            # tracks are shorter than the query.
+            f_lens = torch.randint(n_q // 2, n_prints + 1, (CFG4_TRACKS,),
+                                   dtype=torch.int32, device=dev)
+            f_args = (qs[:FINE_QUERIES], ts.prints, f_lens, f_tracks, f_starts)
+            past = int(((f_starts + n_fine - 1) > (f_lens[f_tracks.long()] - n_q)).sum())
+            checks["fine_rescan"] = (
+                f"{FINE_QUERIES} queries x {FINE_CANDIDATES} candidates, band {n_fine}, "
+                f"{past} bands past max(len - N, 0)",
+                lambda: fine.fine_rescan_kernel(*f_args, n_fine=n_fine),
+                lambda: fine.fine_rescan_ref(*f_args, n_fine=n_fine))
+        else:
+            rows1 = ts.db_c1[:KERNEL_ROWS]
+            q1 = _phase_variants(qs[:8], stride=ts.stride, phases=ts.prefilter_phases,
+                                 kind=ts.coarse_kind, channels=ts.prefilter_channels)[0]
+            q1 = q1.reshape(-1, *q1.shape[2:])
+            checks["coarse_scan_batch"] = (
+                f"{KERNEL_ROWS} rows x {ts.lc_true} windows x {ts.prefilter_channels} "
+                f"channels, {q1.shape[0]} lanes (8 queries x {ts.prefilter_phases} phases)",
+                lambda: coarse_scan.coarse_scan_batch_kernel(q1, rows1, lc_true=ts.lc_true),
+                lambda: coarse_scan.coarse_scan_batch_ref(q1, rows1, lc_true=ts.lc_true))
+            q2 = _phase_variants(qs[:2], stride=ts.stride, phases=ts.query_phases,
+                                 kind=ts.coarse_kind, channels=ts.coarse_channels)[0]
+            pooled = torch.stack([torch.randperm(CFG4_TRACKS, device=dev)[:KERNEL_ROWS]
+                                  for _ in range(2)]).sort(dim=1).values.to(torch.int32)
+            checks["coarse_rescan"] = (
+                f"2 queries x {ts.query_phases} variants over {KERNEL_ROWS} pooled rows each",
+                lambda: coarse_scan.coarse_rescan_kernel(q2, ts.db_c, pooled,
+                                                         lc_true=ts.lc_true),
+                lambda: coarse_scan.coarse_rescan_ref(q2, ts.db_c, pooled,
+                                                      lc_true=ts.lc_true))
+        for kname, (shape, kern, plain) in checks.items():
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = max(int((got[0] - ref[0]).abs().max()), int((got[1] - ref[1]).abs().max()))
+            check(err == 0, f"{kname}: kernel differs from its plain version by {err}")
+            errs[kname] = err
+            log(f"phase 9 {name} {kname}: {shape}: equal to the plain version")
+
+        # ---- phase 10: the slice ----
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        single = [ts.match(q, top_k=10) for q in qs_np]
+        batched, at = [], 0
+        for b in CFG4_BATCHES:
+            batched += ts.match_batch(qs_np[at:at + b], top_k=10)
+            at += b
+        torch.cuda.synchronize()
+        slice_s = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        for i, ((r_ids, r_s, r_o), (b_ids, b_s, b_o)) in enumerate(zip(single, batched)):
+            got = (r_ids[0], int(r_s[0]), int(r_o[0]))
+            check(got == want[i], f"{name} query {i}: top {got}, want {want[i]} (K3 dense)")
+            check(r_ids == b_ids and np.array_equal(r_s, b_s) and np.array_equal(r_o, b_o),
+                  f"{name} query {i}: match_batch differs from match")
+        exact_off = sum(int(w[2]) == int(o) for w, o in zip(want, offs))
+        log(f"phase 10 {name}: {CFG4_QUERIES}/{CFG4_QUERIES} planted tracks first at K3's "
+            f"(score, offset), batched == single; {exact_off}/{CFG4_QUERIES} at the planted "
+            f"offset; scores {min(w[1] for w in want)}..{max(w[1] for w in want)} of "
+            f"{64 * n_q}, #2 at most {max(int(r[1][1]) for r in single)}; "
+            f"{CFG4_QUERIES} match + {len(CFG4_BATCHES)} match_batch in {slice_s:.2f} s")
+
+        # ---- phase 11: the slice went through the kernels ----
+        used = (("coarse_scan", "coarse_scan_batch", "fine_rescan") if name == "default"
+                else ("coarse_scan_batch", "coarse_rescan", "fine_rescan"))
+        check(all(counts[k] > 0 for k in used),
+              f"phase 10 {name} launches {counts}: a kernel of the path never ran")
+        for k in ("coarse_scan", "coarse_scan_batch", "coarse_rescan", "fine_rescan"):
+            launches[k] = launches.get(k, 0) + counts[k]
+        log(f"phase 11 {name} launches during phase 10: {counts}")
+
+        # ---- phase 12: times ----
+        for kname, (shape, kern, plain) in checks.items():
+            measured[kname] = timed_pair(kern, plain)
+            log(f"phase 12 time {name} {kname} ({shape}): kernel {measured[kname][0]:.4f} "
+                f"ms, plain {measured[kname][1]:.4f} ms  [{card}]")
+        lat = []
+        for i in range(21):
+            t1 = time.perf_counter()
+            ts.match(qs_np[i % CFG4_QUERIES], top_k=10)
+            lat.append((time.perf_counter() - t1) * 1e3)
+        bat = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            ts.match_batch(qs_np[:8], top_k=10)
+            bat.append(time.perf_counter() - t1)
+        log(f"phase 12 {name} match latency (host clock, {CFG4_TRACKS} tracks): median "
+            f"{statistics.median(lat):.3f} ms, min {min(lat):.3f} ms, max {max(lat):.3f} ms "
+            f"over {len(lat)}; match_batch B=8: median {statistics.median(bat) * 1e3:.3f} ms "
+            f"= {8 / statistics.median(bat):.1f} queries/s over {len(bat)}  [{card}]")
+        del ts, db, qs, rows, checks
+        torch.cuda.empty_cache()
+
+    check(all(launches[k] > 0 for k in launches), f"catalog launches {launches}")
+    source = "hpfw_tpu_torch/csrc/coarse.cu"
+    replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
+                "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
+                "coarse_rescan": "hpfw_tpu/ops/pallas_coarse.py:201",
+                "fine_rescan": "hpfw_tpu/ops/pallas_fine.py:83"}
+    return [{"name": k, "route": "cuda",
+             "source": source if k != "fine_rescan" else "hpfw_tpu_torch/csrc/fine.cu",
+             "replaces": replaces[k], "launches": launches[k], "max_abs_err": errs[k],
+             "ms": measured[k][0], "plain_ms": measured[k][1]} for k in replaces]
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Build, load and call the hand-written CUDA kernels in hpfw_tpu_torch/csrc.
 
-At first use, nvcc compiles every csrc/*.cu into one shared library with a
-plain C interface for sm_90a (Hopper), and ctypes loads it. The library goes
+At first use, nvcc compiles every csrc/*.cu for sm_90a (Hopper), one
+process a source, all started together, and links the objects into one
+shared library with a plain C interface, which ctypes loads. The library goes
 into build/hpfw_tpu_torch/<hash of sources and flags>/ at the repository
 root, so a changed source builds anew and an unchanged one is reused. There
 is no fallback: a missing nvcc, a failed build or a failed launch raises.
@@ -26,10 +27,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "hpfw_tpu_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libhpfw_kernels.so"
 
-LAUNCHES = {"cqt": 0, "fingerprint": 0, "score_tracks": 0}
+LAUNCHES = {"cqt": 0, "fingerprint": 0, "score_tracks": 0, "coarse_scan": 0,
+            "coarse_scan_batch": 0, "coarse_rescan": 0, "fine_rescan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -67,13 +69,29 @@ def build_library() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                          capture_output=True, text=True)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+    tag = os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    log, failed = [], []
+    for src, proc in zip(sources, procs):
+        out, err = proc.communicate()
+        log.append(f"== {src.name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (exit code {proc.returncode}):\n{err[-4000:]}")
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link (exit code {link.returncode}):\n{link.stderr[-4000:]}")
+    (out_dir / "build.log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 
@@ -92,7 +110,12 @@ def library() -> ctypes.CDLL:
     lib.hpfw_fingerprint.argtypes = [ptr, i32, i32, ptr, i32, i32, i32, i32, i32,
                                      ptr, ptr]
     lib.hpfw_score_tracks.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr]
-    for fn in (lib.hpfw_cqt, lib.hpfw_fingerprint, lib.hpfw_score_tracks):
+    lib.hpfw_coarse_scan.argtypes = [ptr, i32, i32, i32, i32, ptr, i64, i32, ptr, i32,
+                                     i32, i32, ptr, ptr, ptr]
+    lib.hpfw_fine_rescan.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr, ptr, i32,
+                                     i32, ptr, ptr, ptr]
+    for fn in (lib.hpfw_cqt, lib.hpfw_fingerprint, lib.hpfw_score_tracks,
+               lib.hpfw_coarse_scan, lib.hpfw_fine_rescan):
         fn.restype = i32
     lib.hpfw_error_string.argtypes = [i32]
     lib.hpfw_error_string.restype = ctypes.c_char_p

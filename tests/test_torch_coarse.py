@@ -1,0 +1,175 @@
+"""Port coarse stage (the plain versions of K4) vs hpfw_tpu's coarse ops and
+the Pallas coarse kernels in interpret mode: exact int32 equality."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hpfw_tpu.ops import coarse as jax_coarse
+from hpfw_tpu.ops import pallas_coarse
+from hpfw_tpu_torch.ops import coarse, coarse_scan
+
+
+def _prints(a):
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _jax_best(corr):
+    corr = np.asarray(corr)
+    return corr.max(axis=-1), corr.argmax(axis=-1)
+
+
+@pytest.mark.parametrize("stride,kind,channels", [
+    (4, "sign", 64), (8, "sum", 64), (8, "sign", 32), (3, "sign", 16), (16, "sum", 40)])
+def test_coarse_pm1_identical(stride, kind, channels):
+    rng = np.random.default_rng(stride * 7 + channels)
+    packed = rng.integers(0, 2 ** 32, (5, 101, 2), dtype=np.uint32)
+    packed[1, 8:16] = packed[1, 0]          # repeated prints: sums far from 0
+    got = coarse.coarse_pm1(_prints(packed), stride, kind=kind, channels=channels)
+    want = jax_coarse.coarse_pm1(jnp.asarray(packed), stride, kind=kind,
+                                 channels=channels)
+    assert got.dtype == torch.int8 and got.shape == (5, 101 // stride, channels)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    one = coarse.coarse_pm1(_prints(packed[2]), stride, kind=kind, channels=channels)
+    np.testing.assert_array_equal(one.numpy(), np.asarray(want)[2])
+
+
+def test_unpack_bits_pm1_identical():
+    rng = np.random.default_rng(1)
+    packed = rng.integers(0, 2 ** 32, (7, 3, 2), dtype=np.uint32)
+    packed[0, 0] = [0, 2 ** 32 - 1]
+    packed[0, 1] = [2 ** 31, 1]
+    np.testing.assert_array_equal(coarse.unpack_bits_pm1(_prints(packed)).numpy(),
+                                  np.asarray(jax_coarse.unpack_bits_pm1(jnp.asarray(packed))))
+
+
+@pytest.mark.parametrize("lc,c", [(19, 64), (37, 32), (10, 8), (40, 24), (12, 64)])
+def test_flatten_coarse_identical(lc, c):
+    rng = np.random.default_rng(lc)
+    d = rng.choice([-1, 1], (3, lc, c)).astype(np.int8)
+    got = coarse_scan.flatten_coarse(torch.from_numpy(d))
+    want = np.asarray(pallas_coarse.flatten_coarse(jnp.asarray(d)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.shape[1] == coarse_scan.flat_width(lc, c)
+
+
+SCAN_CASES = ["random_lengths", "ties", "all_negative", "sum_valued", "channels_32"]
+
+
+def _scan_case(name):
+    """(query (Nc, C), db (T, Lc, C)) int8, zero past each track's length."""
+    rng = np.random.default_rng(SCAN_CASES.index(name))
+    t, lc, nc, c = 32, 37, 5, 64
+    if name == "channels_32":
+        c = 32
+    if name == "sum_valued":
+        q = rng.integers(-8, 9, (nc, c)).astype(np.int8)
+        d = rng.integers(-8, 9, (t, lc, c)).astype(np.int8)
+    else:
+        q = rng.choice([-1, 1], (nc, c)).astype(np.int8)
+        d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
+    lens = rng.integers(nc, lc + 1, size=t)
+    if name == "ties":
+        d[:] = 0
+        d[:, 3:3 + nc] = q                  # equal peaks at offsets 3 and 11
+        d[:, 11:11 + nc] = q
+        d[5] = d[9]
+        lens[:] = lc
+    if name == "all_negative":
+        q[:] = 1
+        d[4, :] = -1                        # every real offset of track 4 < 0
+        lens[4] = 12                        # ... and offsets 12.. fully padded
+    for i, ln in enumerate(lens):
+        d[i, ln:] = 0
+    return q, d
+
+
+@pytest.mark.parametrize("name", SCAN_CASES)
+def test_coarse_scan_exact(name):
+    q, d = _scan_case(name)
+    lc = d.shape[1]
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d))
+    best, first = coarse_scan.coarse_scan(torch.from_numpy(q), flat, lc_true=lc)
+    want_b, want_i = _jax_best(jax_coarse.coarse_correlation(jnp.asarray(q), jnp.asarray(d)))
+    np.testing.assert_array_equal(best.numpy(), want_b)
+    np.testing.assert_array_equal(first.numpy(), want_i)
+    p_b, p_i = pallas_coarse.pallas_coarse_scan(
+        jnp.asarray(q), jnp.asarray(flat.numpy()), s=8, tt=8, lc_true=lc, interpret=True)
+    np.testing.assert_array_equal(best.numpy(), np.asarray(p_b))
+    np.testing.assert_array_equal(first.numpy(), np.asarray(p_i))
+    np.testing.assert_array_equal(
+        coarse.coarse_correlation(torch.from_numpy(q), torch.from_numpy(d)).numpy(),
+        np.asarray(jax_coarse.coarse_correlation(jnp.asarray(q), jnp.asarray(d))))
+    if name == "ties":
+        assert int(first[0]) == 3
+    if name == "all_negative":
+        assert int(best[4]) == 0 and int(first[4]) == 12
+
+
+@pytest.mark.parametrize("c", [64, 32])
+def test_coarse_scan_batch_exact(c):
+    rng = np.random.default_rng(c)
+    t, lc, nc, b = 32, 37, 5, 3
+    d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
+    for i, ln in enumerate(rng.integers(0, lc + 1, size=t)):
+        d[i, ln:] = 0
+    d[3] = d[7]
+    qs = rng.choice([-1, 1], (b, nc, c)).astype(np.int8)
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d))
+    best, first = coarse_scan.coarse_scan_batch(torch.from_numpy(qs), flat, lc_true=lc)
+    assert best.shape == first.shape == (b, t)
+    p_b, p_i = pallas_coarse.pallas_coarse_scan_batch_stacked(
+        jnp.asarray(qs), jnp.asarray(flat.numpy()), s=8, tt=8, lc_true=lc, interpret=True)
+    np.testing.assert_array_equal(best.numpy(), np.asarray(p_b))
+    np.testing.assert_array_equal(first.numpy(), np.asarray(p_i))
+    corr = jax_coarse.coarse_correlation_batch(jnp.asarray(qs), jnp.asarray(d))
+    want_b, want_i = _jax_best(corr)
+    np.testing.assert_array_equal(best.numpy(), want_b)
+    np.testing.assert_array_equal(first.numpy(), want_i)
+    np.testing.assert_array_equal(
+        coarse.coarse_correlation_batch(torch.from_numpy(qs), torch.from_numpy(d)).numpy(),
+        np.asarray(corr))
+
+
+@pytest.mark.parametrize("c,duplicates", [(64, False), (32, True)])
+def test_coarse_rescan_exact(c, duplicates):
+    """Block-diagonal rescan through an index array == the reference kernel
+    on the gathered rows, at B=2 queries, V=3 variants, M=16 rows each."""
+    rng = np.random.default_rng(11 + c)
+    t, lc, nc, b, v, m = 48, 37, 5, 2, 3, 16
+    d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
+    for i, ln in enumerate(rng.integers(nc, lc + 1, size=t)):
+        d[i, ln:] = 0
+    d[3] = d[7]
+    rows = np.sort(np.stack([rng.permutation(t)[:m] for _ in range(b)]), axis=1)
+    if duplicates:                          # a padded pool repeats its first row
+        rows[1, -3:] = rows[1, 0]
+        rows[1] = np.sort(rows[1])
+    qs = rng.choice([-1, 1], (b, v, nc, c)).astype(np.int8)
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d))
+    best, first = coarse_scan.coarse_rescan(
+        torch.from_numpy(qs), flat, torch.from_numpy(rows.astype(np.int32)), lc_true=lc)
+    assert best.shape == first.shape == (b, v, m)
+    p_b, p_i = pallas_coarse.pallas_coarse_rescan_stacked(
+        jnp.asarray(qs), jnp.asarray(flat.numpy()[rows.reshape(-1)]), s=8, lc_true=lc,
+        interpret=True)
+    np.testing.assert_array_equal(best.numpy(), np.asarray(p_b))
+    np.testing.assert_array_equal(first.numpy(), np.asarray(p_i))
+
+
+def test_plain_scan_blocks_do_not_change_result(monkeypatch):
+    q, d = _scan_case("random_lengths")
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d))
+    want = coarse_scan.coarse_scan_ref(torch.from_numpy(q), flat, lc_true=d.shape[1])
+    monkeypatch.setattr(coarse, "REF_BLOCK_ELEMS", 3 * 37 * 5)   # 3 tracks a block
+    got = coarse_scan.coarse_scan_ref(torch.from_numpy(q), flat, lc_true=d.shape[1])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_scan_rejects_query_longer_than_rows():
+    q = torch.ones((6, 64), dtype=torch.int8)
+    flat = coarse_scan.flatten_coarse(torch.ones((2, 5, 64), dtype=torch.int8))
+    with pytest.raises(ValueError, match="longer than"):
+        coarse_scan.coarse_scan(q, flat, lc_true=5)

@@ -100,7 +100,10 @@ def test_filters_from_jax_keeps_values_and_checks_shape():
 def test_port_imports_no_jax():
     code = ("import sys, hpfw_tpu_torch, hpfw_tpu_torch.api, hpfw_tpu_torch.filters, "
             "hpfw_tpu_torch.io.synth, hpfw_tpu_torch.ops.fused, "
-            "hpfw_tpu_torch.ops._build, hpfw_tpu_torch.match.matcher; "
+            "hpfw_tpu_torch.ops._build, hpfw_tpu_torch.match.matcher, "
+            "hpfw_tpu_torch.ops.coarse, hpfw_tpu_torch.ops.coarse_scan, "
+            "hpfw_tpu_torch.ops.fine, hpfw_tpu_torch.match.scaled, "
+            "hpfw_tpu_torch.match.stretch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hpfw_tpu')]; "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

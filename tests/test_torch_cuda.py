@@ -1,4 +1,4 @@
-"""The three CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked `cuda`; each test skips unless torch sees a CUDA device. The card's
 machine has no jax, so run this file there without the repo's conftest:
@@ -17,7 +17,8 @@ from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.filters import filters_from_jax, fix_eigenvector_signs
 from hpfw_tpu_torch.io import synth
 from hpfw_tpu_torch.match import matcher
-from hpfw_tpu_torch.ops import _build, frontend
+from hpfw_tpu_torch.match.scaled import TwoStageDB
+from hpfw_tpu_torch.ops import _build, coarse_scan, fine, frontend
 from hpfw_tpu_torch.ops import fingerprint as fp_ops
 
 pytestmark = pytest.mark.cuda
@@ -110,7 +111,9 @@ def test_api_on_card_matches_cpu_and_counts_launches(dev):
     q = api.fingerprint(synth.make_query(tracks[2], 0.5, 1.5, cfg), filters, cfg,
                         device=dev)
     ids, scores, offsets = api.match(q, db, top_k=3)
-    assert _build.LAUNCHES == {"cqt": 5, "fingerprint": 5, "score_tracks": 1}
+    assert _build.LAUNCHES == {"cqt": 5, "fingerprint": 5, "score_tracks": 1,
+                               "coarse_scan": 0, "coarse_scan_batch": 0,
+                               "coarse_rescan": 0, "fine_rescan": 0}
     cpu_db = api.build_db(tracks, filters, cfg, device="cpu")
     diff = np.bitwise_count(db.prints ^ cpu_db.prints).sum()
     assert diff <= max(2, db.prints.size * 32 // 10000)
@@ -141,3 +144,102 @@ def test_wrappers_reject_bad_inputs(dev):
         matcher.score_tracks_kernel(q, torch.zeros((2, 5, 2), dtype=torch.int32,
                                                    device=dev),
                                     torch.zeros(2, dtype=torch.int32, device=dev))
+
+
+def _coarse_db(rng, t, lc, c, nc, values):
+    d = (rng.choice([-1, 1], (t, lc, c)) if values == "pm1"
+         else rng.integers(-16, 17, (t, lc, c))).astype(np.int8)
+    for i, ln in enumerate(rng.integers(nc, lc + 1, size=t)):
+        d[i, ln:] = 0
+    d[3] = d[7]                                       # cross-track ties
+    return coarse_scan.flatten_coarse(torch.from_numpy(d))
+
+
+@pytest.mark.parametrize("c,lc,nc,values", [
+    (64, 161, 26, "pm1"), (32, 161, 26, "pm1"), (8, 40, 5, "sum"),
+    (24, 700, 9, "pm1"), (64, 26, 26, "sum")])
+def test_coarse_kernel_matches_plain(dev, c, lc, nc, values):
+    """K4's three surfaces, exact: 60 s rows, C = 8..64, offsets past one
+    pass of 256 (lc 700), a single offset (nc == lc), sum-valued prints."""
+    rng = np.random.default_rng(c + lc)
+    t = 203
+    flat = _coarse_db(rng, t, lc, c, nc, values).to(dev)
+    qs = torch.from_numpy(rng.choice([-1, 1], (6, nc, c)).astype(np.int8)).to(dev)
+    got = coarse_scan.coarse_scan_kernel(qs[0], flat, lc_true=lc)
+    want = coarse_scan.coarse_scan_ref(qs[0], flat, lc_true=lc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = coarse_scan.coarse_scan_batch_kernel(qs, flat, lc_true=lc)
+    want = coarse_scan.coarse_scan_batch_ref(qs, flat, lc_true=lc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rows = torch.from_numpy(np.sort(np.stack([rng.permutation(t)[:40] for _ in range(2)]),
+                                    axis=1).astype(np.int32)).to(dev)
+    q4 = qs.view(2, 3, nc, c)
+    got = coarse_scan.coarse_rescan_kernel(q4, flat, rows, lc_true=lc)
+    want = coarse_scan.coarse_rescan_ref(q4, flat, rows, lc_true=lc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fine_kernel_matches_plain(dev):
+    rng = np.random.default_rng(8)
+    t, l, n, n_fine = 40, 700, 300, 45
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    lengths = rng.integers(0, l + 1, t).astype(np.int32)
+    lengths[:4] = [l, 150, 0, 299]
+    qs = rng.integers(0, 2 ** 32, (3, n, 2), dtype=np.uint32)
+    prints[0, 200:200 + n] = qs[0]
+    for i, ln in enumerate(lengths):
+        prints[i, ln:] = 0
+    tracks = rng.integers(0, t, (3, 64)).astype(np.int32)
+    starts = rng.integers(0, l - n - n_fine, (3, 64)).astype(np.int32)
+    tracks[0, :6], starts[0, :6] = [0, 0, 1, 2, 3, 3], [180, 180, 0, 0, 0, 10]
+    args = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+            for a in (qs, prints, lengths, tracks, starts)]
+    got = fine.fine_rescan_kernel(*args, n_fine=n_fine)
+    want = fine.fine_rescan_ref(*args, n_fine=n_fine)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0][0, 0]) == 64 * n and int(got[1][0, 0]) == 200
+
+
+@pytest.mark.parametrize("preset", ["default", "catalog_scale"])
+def test_two_stage_on_card_matches_cpu_and_counts_launches(dev, preset):
+    cfg = (HpfwConfig(db_downsample=8) if preset == "default"
+           else HpfwConfig.catalog_scale(db_downsample=8))
+    rng = np.random.default_rng(5)
+    t, l, n = 61, 400, 96
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32),
+                           [str(i) for i in range(t)], prints, np.full(t, l, np.int32))
+    qs = np.stack([prints[i, o:o + n] for i, o in ((3, 5), (40, 133), (60, 250))])
+    on_cpu = TwoStageDB(db)
+    _build.reset_launch_counts()
+    on_card = TwoStageDB(db, device=dev)
+    for q in qs:
+        a, b = on_card.match(q, top_k=5, pool=16), on_cpu.match(q, top_k=5, pool=16)
+        assert a[0] == b[0]
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_array_equal(a[2], b[2])
+    for a, b in zip(on_card.match_batch(qs, top_k=5, pool=16),
+                    on_cpu.match_batch(qs, top_k=5, pool=16)):
+        assert a[0] == b[0]
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_array_equal(a[2], b[2])
+    used = {k for k in ("coarse_scan", "coarse_scan_batch", "coarse_rescan", "fine_rescan")
+            if _build.LAUNCHES[k]}
+    assert used == ({"coarse_scan", "coarse_scan_batch", "fine_rescan"} if preset == "default"
+                    else {"coarse_scan_batch", "coarse_rescan", "fine_rescan"})
+
+
+def test_coarse_and_fine_wrappers_reject_bad_inputs(dev):
+    flat = torch.zeros((4, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        coarse_scan.coarse_scan_kernel(torch.zeros((3, 12), dtype=torch.int8, device=dev),
+                                       flat, lc_true=2)
+    with pytest.raises(ValueError):
+        coarse_scan.coarse_scan_kernel(torch.zeros((3, 64), dtype=torch.int8), flat,
+                                       lc_true=2)
+    z = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        fine.fine_rescan_kernel(torch.zeros((1, 10, 2), dtype=torch.int32, device=dev),
+                                torch.zeros((2, 5, 2), dtype=torch.int32, device=dev),
+                                torch.zeros(3, dtype=torch.int32, device=dev), z, z,
+                                n_fine=3)
