@@ -27,9 +27,26 @@ HpfwConfig.catalog_scale() (misphased plants), on a TwoStageDB on the card:
      offset) of K3's dense scan of that track, and batched equals single;
  11. the kernels launched during phase 10, by the launch counters;
  12. times of K4, K5 and their plain versions, the single-query match
-     latency and the batch-of-8 queries per second.
-The last two lines are a JSON object of per-kernel results and
-{"ok": true, "device": {...}}. Imports nothing of jax or hpfw_tpu.
+     latency and the batch-of-8 queries per second;
+then, on the catalog_scale() catalog, whose rows also hold 16 synthetic
+60 s stream tracks extracted on the card in phase 8:
+ 13. the pass-1 DB nibble-packed (5,248 -> 2,688 B a row): packed K4 equal to
+     its plain version and to int8 K4 on 8,192 rows x 16 lanes; the HBM
+     load-floor probe (csrc/probe.cu) equal to torch.sum over the coarse DB
+     and the packed pass-1 DB, and its GB/s;
+ 14. TwoStageDB(prefilter_pack4=True): all 20 queries through match and
+     match_batch identical to phase 10's int8 DB, pass 1 only on packed K4;
+ 15. MatchServer over it under Poisson load (benchmarks/config4_serve.py's
+     settings): single queries equal ts.match, p50/p99, achieved q/s, shed
+     share and recall at 100-800 offered q/s, and the knee;
+ 16. StreamingPool at B = 8 and 16 (benchmarks/config3_pool.py's protocol):
+     every stream identifies its planted track; tick ms and streams a card;
+ 17. StreamingSession (rigid) on one 30 s stream; match and step p50/p99.
+Each path (phases 4, 10, 14, 15, 16, 17) runs with the launch counters set
+to 0 just before it and read just after; comparison and timing launches are
+not counted. The last two lines are a JSON object of per-kernel results
+(time, plain and library time, bound) and {"ok": true, "device": {...}}.
+Imports nothing of jax or hpfw_tpu.
 """
 
 from __future__ import annotations
@@ -38,7 +55,9 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -57,6 +76,64 @@ CFG4_FLIP = 0.15
 CFG4_BATCHES = (8, 8, 4)
 KERNEL_ROWS = 8192          # K4 rows scanned, and pooled rows a query for the rescan
 FINE_QUERIES, FINE_CANDIDATES = 8, 1024
+# Serving (benchmarks/config4_serve.py) and streaming (benchmarks/config3_pool.py).
+SERVE_LOADS = (100.0, 200.0, 400.0, 800.0)
+SERVE_KW = dict(max_batch=16, max_wait_ms=4.0, depth=2, max_queue=64)
+STREAMS, STREAM_SECONDS, STREAM_SEED = 16, 60.0, 7000
+POOL_SIZES, CHUNK_PRINTS, QUERY_PRINTS = (8, 16), 32, 128
+POOL_WARM_TICKS, POOL_TICKS = QUERY_PRINTS // CHUNK_PRINTS + 3, 30
+SESSION_SECONDS = 30.0
+
+# The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, dense
+# rates at the full 700 W): bytes over the memory rate, operations over the
+# rate of the unit the TPU kernel's work maps to. int32 is 64 INT32 lanes an
+# SM (Hopper white paper) x 132 SMs x 1.98 GHz, the clock behind the data
+# sheet's 67 TFLOP/s float32.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"int8_tensor": 1979e12, "bf16_tensor": 989e12, "int32": 132 * 64 * 1.98e9}
+# The TPU's CQT and encoder GEMMs run six bf16 products (an X6 split of each
+# float32 operand, pallas_frontend.py:81-83, pallas_fingerprint.py).
+X6_PASSES = 6
+# Per 32-bit word of a print comparison: xor, popcount, add.
+WORD_OPS = 3
+
+
+def bound(nbytes: float, ops: float, unit: str) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for nbytes moved and ops done."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[unit]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# Launch counts of every kernel summed over the main-path runs (phases 4, 10,
+# 14-17), each read right after its run.
+PATH_LAUNCHES: Counter = Counter()
+
+
+def start_path() -> None:
+    from hpfw_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+
+
+def end_path() -> dict:
+    """The launches since start_path(), added to PATH_LAUNCHES."""
+    from hpfw_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    PATH_LAUNCHES.update(counts)
+    return counts
+
+
+def random_filters(cfg) -> np.ndarray:
+    from hpfw_tpu_torch.filters import fix_eigenvector_signs
+    rng = np.random.default_rng(0)
+    return fix_eigenvector_signs(
+        rng.standard_normal((cfg.context_dim, cfg.n_filters)) / np.sqrt(cfg.context_dim)
+    ).astype(np.float32)
 
 
 class SmokeFailure(RuntimeError):
@@ -68,8 +145,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+# The card's name and power limit, as nvidia-smi gives them, once phase 1 has
+# read them; every later line of output carries them.
+CARD = ""
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"{msg}  [{CARD}]" if CARD else msg, flush=True)
 
 
 def cuda_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
@@ -95,7 +177,7 @@ def differing_bits(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(np.bitwise_count(x).sum())
 
 
-def phase_device() -> str:
+def phase_device() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs "
               "a CUDA card", file=sys.stderr)
@@ -105,11 +187,12 @@ def phase_device() -> str:
                          capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    global CARD
+    CARD = card
     from hpfw_tpu_torch.ops import dot
     check(dot.tf32_disabled(), "TF32 is enabled for float32 products")
-    log(f"phase 1 device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+    log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | tf32 off")
-    return card
 
 
 def phase_build() -> None:
@@ -126,33 +209,34 @@ def phase_build() -> None:
 
 
 def main() -> None:
-    card = phase_device()
+    phase_device()
     phase_build()
     dev = torch.device("cuda", 0)
-    kernels = run(card, dev)
-    kernels += run_catalog(card, dev)
+    kernels = run(dev)
+    kernels += run_catalog(dev)
+    for k in kernels:
+        k["launches"] = PATH_LAUNCHES[k.pop("counter")]
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel was never launched on a main path: {dict(PATH_LAUNCHES)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run(card: str, dev: torch.device) -> list[dict]:
+def run(dev: torch.device) -> list[dict]:
     """Phases 3-7 on dev, once the card is checked and the kernels built.
     Returns the per-kernel results of K1-K3."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
-    from hpfw_tpu_torch.filters import filters_from_jax, fix_eigenvector_signs
+    from hpfw_tpu_torch.filters import filters_from_jax
     from hpfw_tpu_torch.io import synth
     from hpfw_tpu_torch.match import matcher
-    from hpfw_tpu_torch.ops import _build, frontend
+    from hpfw_tpu_torch.ops import frontend
     from hpfw_tpu_torch.ops import fingerprint as fp_ops
 
     cfg = HpfwConfig()
-    rng = np.random.default_rng(0)
-    filters_np = fix_eigenvector_signs(
-        rng.standard_normal((cfg.context_dim, cfg.n_filters)) / np.sqrt(cfg.context_dim)
-    ).astype(np.float32)
+    filters_np = random_filters(cfg)
     filt = filters_from_jax(filters_np, cfg, dev)
 
     t0 = time.perf_counter()
@@ -211,7 +295,7 @@ def run(card: str, dev: torch.device) -> list[dict]:
         f"scores and offsets equal to the plain scan")
 
     # ---- phase 4: the slice, BASELINE config 1 ----
-    _build.reset_launch_counts()
+    start_path()
     t0 = time.perf_counter()
     db = api.build_db(tracks, filters_np, cfg, device=dev)
     build_s = time.perf_counter() - t0
@@ -233,8 +317,7 @@ def run(card: str, dev: torch.device) -> list[dict]:
           and int(e_offs[0]) == EXCERPT_PRINT,
           f"exact excerpt: top {e_ids[0]} score {e_scores[0]} offset {e_offs[0]}, "
           f"want {EXCERPT_TRACK} {64 * efp.shape[0]} {EXCERPT_PRINT}")
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    launches = end_path()
     cpu_fp = api.fingerprint(tracks[0], filters_np, cfg, device="cpu")
     cpu_bits = int(np.bitwise_count(cpu_fp ^ db.prints[0, :db.lengths[0]]).sum())
     cpu_limit = max(2, cpu_fp.size * 32 // 10000)
@@ -275,7 +358,7 @@ def run(card: str, dev: torch.device) -> list[dict]:
         f"K3 = plain on the first {CAT_COMPARE} tracks")
 
     # ---- phase 6: the main path went through every kernel ----
-    check(all(launches[k] > 0 for k in ("cqt", "fingerprint", "score_tracks")),
+    check(all(launches.get(k, 0) > 0 for k in ("cqt", "fingerprint", "score_tracks")),
           f"phase 4 launches {launches}: a kernel of the path never ran")
     torch.cuda.synchronize()
     log(f"phase 6 launches during phase 4: {launches}")
@@ -305,7 +388,7 @@ def run(card: str, dev: torch.device) -> list[dict]:
         p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
         measured[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         log(f"phase 7 time {name}: kernel {measured[name][0]:.4f} ms, plain "
-            f"{measured[name][1]:.4f} ms  [{card}]")
+            f"{measured[name][1]:.4f} ms")
 
     del cat_db, cat_p, cat_l
     batch = torch.from_numpy(long_pcm).to(dev).expand(BATCH, -1).contiguous()
@@ -321,7 +404,7 @@ def run(card: str, dev: torch.device) -> list[dict]:
     audio_s = BATCH * LONG_SECONDS
     log(f"phase 7 extraction {BATCH} x {LONG_SECONDS:.0f} s: kernels {kern_ms:.2f} ms "
         f"= {audio_s / (kern_ms / 1e3):.1f}x realtime; plain {plain_ms:.2f} ms = "
-        f"{audio_s / (plain_ms / 1e3):.1f}x realtime  [{card}]")
+        f"{audio_s / (plain_ms / 1e3):.1f}x realtime")
 
     lat = []
     for _ in range(21):
@@ -331,26 +414,40 @@ def run(card: str, dev: torch.device) -> list[dict]:
         lat.append((time.perf_counter() - t0) * 1e3)
     log(f"phase 7 config-1 query latency (fingerprint 10 s + match 100 tracks, host "
         f"clock): median {statistics.median(lat):.3f} ms, min {min(lat):.3f} ms, "
-        f"max {max(lat):.3f} ms over {len(lat)}  [{card}]")
+        f"max {max(lat):.3f} ms over {len(lat)}")
 
-    kernels = [
-        {"name": "cqt_filterbank", "route": "cuda",
-         "source": "hpfw_tpu_torch/csrc/frontend.cu",
-         "replaces": "hpfw_tpu/ops/pallas_frontend.py:68",
-         "launches": launches["cqt"], "max_abs_err": k1_err,
-         "ms": measured["K1 query_10s"][0], "plain_ms": measured["K1 query_10s"][1]},
-        {"name": "hashprint_encoder", "route": "cuda",
-         "source": "hpfw_tpu_torch/csrc/fingerprint.cu",
-         "replaces": "hpfw_tpu/ops/pallas_fingerprint.py:63",
-         "launches": launches["fingerprint"], "max_abs_err": k2_err,
-         "differing_bits": k2_bits,
-         "ms": measured["K2 query_10s"][0], "plain_ms": measured["K2 query_10s"][1]},
-        {"name": "hamming_scan", "route": "cuda",
-         "source": "hpfw_tpu_torch/csrc/match.cu",
-         "replaces": "hpfw_tpu/ops/pallas_match.py:41",
-         "launches": launches["score_tracks"], "max_abs_err": k3_err,
-         "ms": measured["K3 config1_db"][0], "plain_ms": measured["K3 config1_db"][1]},
-    ]
+    # ---- the bounds and library calls of the timed shapes (query_10s, config1_db) ----
+    kmat = frontend.kernel_matrix(cfg, dev)
+    n_frames = q_frames.shape[0]
+    k1_bound = bound(4 * len(q_pcm) + nbytes(kmat) + 4 * n_frames * cfg.n_bins,
+                     X6_PASSES * 2 * n_frames * cfg.frame_len * kmat.shape[1], "bf16_tensor")
+    k1_lib = cuda_ms(lambda: torch.matmul(q_frames, kmat))
+    m_rows = q_spec.shape[0] - cfg.context_w + 1
+    k2_bound = bound(nbytes(q_spec, filt) + 8 * (m_rows - cfg.delta_lag),
+                     X6_PASSES * 2 * m_rows * cfg.context_dim * cfg.n_filters, "bf16_tensor")
+    valid = (db_l.to(torch.int64) - q_dev.shape[0]).clamp(min=0) + 1
+    k3_bound = bound(nbytes(q_dev, db_p, db_l) + 8 * db_p.shape[0],
+                     int(valid.sum()) * q_dev.shape[0] * 2 * WORD_OPS, "int32")
+    log(f"phase 7 library: torch.matmul of K1's query_10s operands {k1_lib:.4f} ms "
+        f"(TF32 off)")
+    log(f"phase 7 bounds: K1 query_10s {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 query_10s "
+        f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), K3 config1_db {k3_bound[0]:.4f} ms "
+        f"({k3_bound[1]})")
+    rows = (("cqt_filterbank", "cqt", "frontend.cu", "pallas_frontend.py:68", k1_err,
+             "K1 query_10s", k1_bound, k1_lib),
+            ("hashprint_encoder", "fingerprint", "fingerprint.cu", "pallas_fingerprint.py:63",
+             k2_err, "K2 query_10s", k2_bound, None),
+            ("hamming_scan", "score_tracks", "match.cu", "pallas_match.py:41", k3_err,
+             "K3 config1_db", k3_bound, None))
+    kernels = []
+    for name, counter, src, tpu, err, timed, (b_ms, b_by), lib in rows:
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"hpfw_tpu_torch/csrc/{src}",
+            "replaces": f"hpfw_tpu/ops/{tpu}", "counter": counter,
+            "max_abs_err": err, "ms": measured[timed][0], "plain_ms": measured[timed][1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+        if name == "hashprint_encoder":
+            kernels[-1]["differing_bits"] = k2_bits
     return kernels
 
 
@@ -375,16 +472,20 @@ def timed_pair(kern, plain) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def run_catalog(card: str, dev: torch.device) -> list[dict]:
-    """Phases 8-12: BASELINE config 4 through TwoStageDB, under HpfwConfig()
-    and HpfwConfig.catalog_scale(). Returns the per-kernel results of K4, K5."""
+def run_catalog(dev: torch.device) -> list[dict]:
+    """Phases 8-17: BASELINE config 4 through TwoStageDB, under HpfwConfig()
+    and HpfwConfig.catalog_scale(), then the packed pass 1, the server and
+    the streaming surfaces on the catalog_scale() catalog. Returns the
+    per-kernel results of K4 (int8 and packed), K5 and the probe."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.filters import filters_from_jax
+    from hpfw_tpu_torch.io import synth
     from hpfw_tpu_torch.match import matcher
     from hpfw_tpu_torch.match.scaled import TwoStageDB, _phase_variants
-    from hpfw_tpu_torch.ops import _build, coarse_scan, fine
+    from hpfw_tpu_torch.ops import coarse_scan, fine
 
-    # ---- phase 8: the config-4 catalog and its planted queries ----
+    # ---- phase 8: the config-4 catalog, its planted queries and stream tracks ----
     t0 = time.perf_counter()
     fps = HpfwConfig().frames_per_second
     n_prints, n_q = int(CFG4_SECONDS * fps), int(CFG4_QUERY_SECONDS * fps)
@@ -402,21 +503,34 @@ def run_catalog(card: str, dev: torch.device) -> list[dict]:
                                for t, o in zip(truth, offs)])
                for name, (_, offs) in runs.items()}
     ids = [str(i) for i in range(CFG4_TRACKS)]
+    # Stream tracks (benchmarks/config3_pool.py:58-68), extracted on the card and
+    # planted in the first rows that no query uses, before any TwoStageDB is built.
+    stream_cfg = HpfwConfig.catalog_scale()
+    filters_np = random_filters(stream_cfg)
+    stream_pcm = [synth.synth_track(STREAM_SEED + i, STREAM_SECONDS, stream_cfg)
+                  for i in range(STREAMS)]
+    stream_prints = api._to_numpy_prints(api.fingerprint_batch_device(
+        torch.from_numpy(np.stack(stream_pcm)).to(dev),
+        filters_from_jax(filters_np, stream_cfg, dev), stream_cfg))
+    stream_rows = [r for r in range(CFG4_TRACKS) if r not in set(truth.tolist())][:STREAMS]
+    for row, sp in zip(stream_rows, stream_prints):
+        n = min(n_prints, sp.shape[0])
+        prints[row, :n] = sp[:n]
     log(f"phase 8 catalog: {CFG4_TRACKS} x {n_prints} prints ({prints.nbytes / 1e9:.2f} GB), "
-        f"{CFG4_QUERIES} noisy {n_q}-print queries ({CFG4_FLIP:.0%} of bits flipped) in "
+        f"{CFG4_QUERIES} noisy {n_q}-print queries ({CFG4_FLIP:.0%} of bits flipped), "
+        f"{STREAMS} x {STREAM_SECONDS:.0f} s stream tracks extracted on the card "
+        f"({stream_prints.shape[1]} prints each) in rows {stream_rows[0]}..{stream_rows[-1]}; "
         f"{time.perf_counter() - t0:.1f} s")
 
-    measured, errs, launches = {}, {}, {}
+    kernels = {}
     for name, (cfg, offs) in runs.items():
         t0 = time.perf_counter()
-        db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32), ids,
-                               prints, lengths, device=dev)
+        db = api.FingerprintDB(cfg, filters_np, ids, prints, lengths, device=dev)
         ts = TwoStageDB(db)
         torch.cuda.synchronize()
         qs_np = queries[name]
         qs = torch.from_numpy(qs_np.view(np.int32)).to(dev)
-        gib = sum(x.numel() * x.element_size() for x in {id(t): t for t in (
-            ts.prints, ts.db_c, ts.db_c1)}.values()) / 2 ** 30
+        gib = nbytes(*{id(t): t for t in (ts.prints, ts.db_c, ts.db_c1)}.values()) / 2 ** 30
         log(f"  {name}: TwoStageDB on the card in {time.perf_counter() - t0:.1f} s "
             f"(prints + coarse DBs {gib:.2f} GiB; db_c {tuple(ts.db_c.shape)}, db_c1 "
             f"{tuple(ts.db_c1.shape)}, phases {ts.query_phases}, prefilter {ts.prefilter}, "
@@ -429,15 +543,18 @@ def run_catalog(card: str, dev: torch.device) -> list[dict]:
 
         # ---- phase 9: K4 and K5 against their plain versions ----
         rows = ts.db_c[:KERNEL_ROWS]
-        checks = {}
+        checks = {}      # name -> (shape, kernel, plain, (bound ms, bound by))
         if name == "default":
             qc = _phase_variants(qs[:1], stride=ts.stride, phases=1, kind=ts.coarse_kind,
                                  channels=ts.coarse_channels)[0][0, 0]
+            n_off = ts.lc_true - qc.shape[0] + 1
             checks["coarse_scan"] = (
                 f"{KERNEL_ROWS} rows x {ts.lc_true} windows x {ts.coarse_channels} "
                 f"channels, one {qc.shape[0]}-window query",
                 lambda: coarse_scan.coarse_scan_kernel(qc, rows, lc_true=ts.lc_true),
-                lambda: coarse_scan.coarse_scan_ref(qc, rows, lc_true=ts.lc_true))
+                lambda: coarse_scan.coarse_scan_ref(qc, rows, lc_true=ts.lc_true),
+                bound(nbytes(rows, qc) + 8 * KERNEL_ROWS,
+                      2 * KERNEL_ROWS * n_off * qc.numel(), "int8_tensor"))
             f_tracks = torch.randint(0, CFG4_TRACKS, (FINE_QUERIES, FINE_CANDIDATES),
                                      dtype=torch.int32, device=dev)
             n_fine = 2 * ts.stride + 1
@@ -449,51 +566,64 @@ def run_catalog(card: str, dev: torch.device) -> list[dict]:
             f_lens = torch.randint(n_q // 2, n_prints + 1, (CFG4_TRACKS,),
                                    dtype=torch.int32, device=dev)
             f_args = (qs[:FINE_QUERIES], ts.prints, f_lens, f_tracks, f_starts)
-            past = int(((f_starts + n_fine - 1) > (f_lens[f_tracks.long()] - n_q)).sum())
+            cand_len = f_lens[f_tracks.long()].to(torch.int64)
+            max_o = (cand_len - n_q).clamp(min=0)
+            past = int(((f_starts + n_fine - 1) > max_o).sum())
+            # This run's work: each band offset up to max(len - N, 0), over
+            # min(N, len) prints; the band's prints read once.
+            n_valid = (max_o - f_starts + 1).clamp(0, n_fine)
+            fine_ops = int((n_valid * cand_len.clamp(max=n_q)).sum()) * 2 * WORD_OPS
             checks["fine_rescan"] = (
                 f"{FINE_QUERIES} queries x {FINE_CANDIDATES} candidates, band {n_fine}, "
                 f"{past} bands past max(len - N, 0)",
                 lambda: fine.fine_rescan_kernel(*f_args, n_fine=n_fine),
-                lambda: fine.fine_rescan_ref(*f_args, n_fine=n_fine))
+                lambda: fine.fine_rescan_ref(*f_args, n_fine=n_fine),
+                bound(8 * f_tracks.numel() * span + nbytes(qs[:FINE_QUERIES]) +
+                      4 * f_tracks.numel() * 4, fine_ops, "int32"))
         else:
             rows1 = ts.db_c1[:KERNEL_ROWS]
             q1 = _phase_variants(qs[:8], stride=ts.stride, phases=ts.prefilter_phases,
                                  kind=ts.coarse_kind, channels=ts.prefilter_channels)[0]
             q1 = q1.reshape(-1, *q1.shape[2:])
+            n_off1 = ts.lc_true - q1.shape[1] + 1
             checks["coarse_scan_batch"] = (
                 f"{KERNEL_ROWS} rows x {ts.lc_true} windows x {ts.prefilter_channels} "
                 f"channels, {q1.shape[0]} lanes (8 queries x {ts.prefilter_phases} phases)",
                 lambda: coarse_scan.coarse_scan_batch_kernel(q1, rows1, lc_true=ts.lc_true),
-                lambda: coarse_scan.coarse_scan_batch_ref(q1, rows1, lc_true=ts.lc_true))
+                lambda: coarse_scan.coarse_scan_batch_ref(q1, rows1, lc_true=ts.lc_true),
+                bound(nbytes(rows1, q1) + 8 * q1.shape[0] * KERNEL_ROWS,
+                      2 * KERNEL_ROWS * n_off1 * q1.numel(), "int8_tensor"))
             q2 = _phase_variants(qs[:2], stride=ts.stride, phases=ts.query_phases,
                                  kind=ts.coarse_kind, channels=ts.coarse_channels)[0]
             pooled = torch.stack([torch.randperm(CFG4_TRACKS, device=dev)[:KERNEL_ROWS]
                                   for _ in range(2)]).sort(dim=1).values.to(torch.int32)
+            n_off2 = ts.lc_true - q2.shape[2] + 1
             checks["coarse_rescan"] = (
                 f"2 queries x {ts.query_phases} variants over {KERNEL_ROWS} pooled rows each",
                 lambda: coarse_scan.coarse_rescan_kernel(q2, ts.db_c, pooled,
                                                          lc_true=ts.lc_true),
                 lambda: coarse_scan.coarse_rescan_ref(q2, ts.db_c, pooled,
-                                                      lc_true=ts.lc_true))
-        for kname, (shape, kern, plain) in checks.items():
+                                                      lc_true=ts.lc_true),
+                bound(pooled.numel() * ts.db_c.shape[1] + nbytes(q2, pooled) +
+                      8 * q2.shape[1] * pooled.numel(),
+                      2 * KERNEL_ROWS * n_off2 * q2.numel(), "int8_tensor"))
+        for kname, (shape, kern, plain, _) in checks.items():
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err = max(int((got[0] - ref[0]).abs().max()), int((got[1] - ref[1]).abs().max()))
             check(err == 0, f"{kname}: kernel differs from its plain version by {err}")
-            errs[kname] = err
+            kernels[kname] = {"max_abs_err": err}
             log(f"phase 9 {name} {kname}: {shape}: equal to the plain version")
 
         # ---- phase 10: the slice ----
-        _build.reset_launch_counts()
+        start_path()
         t0 = time.perf_counter()
         single = [ts.match(q, top_k=10) for q in qs_np]
-        batched, at = [], 0
-        for b in CFG4_BATCHES:
-            batched += ts.match_batch(qs_np[at:at + b], top_k=10)
-            at += b
-        torch.cuda.synchronize()
+        per_match = end_path()
+        start_path()
+        batched = match_in_batches(ts, qs_np)
         slice_s = time.perf_counter() - t0
-        counts = dict(_build.LAUNCHES)
+        per_batches = end_path()
         for i, ((r_ids, r_s, r_o), (b_ids, b_s, b_o)) in enumerate(zip(single, batched)):
             got = (r_ids[0], int(r_s[0]), int(r_o[0]))
             check(got == want[i], f"{name} query {i}: top {got}, want {want[i]} (K3 dense)")
@@ -509,44 +639,343 @@ def run_catalog(card: str, dev: torch.device) -> list[dict]:
         # ---- phase 11: the slice went through the kernels ----
         used = (("coarse_scan", "coarse_scan_batch", "fine_rescan") if name == "default"
                 else ("coarse_scan_batch", "coarse_rescan", "fine_rescan"))
+        counts = Counter(per_match) + Counter(per_batches)
         check(all(counts[k] > 0 for k in used),
-              f"phase 10 {name} launches {counts}: a kernel of the path never ran")
-        for k in ("coarse_scan", "coarse_scan_batch", "coarse_rescan", "fine_rescan"):
-            launches[k] = launches.get(k, 0) + counts[k]
-        log(f"phase 11 {name} launches during phase 10: {counts}")
+              f"phase 10 {name} launches {dict(counts)}: a kernel of the path never ran")
+        log(f"phase 11 {name} launches: {CFG4_QUERIES} x match {per_match} (per match "
+            f"{ {k: v / CFG4_QUERIES for k, v in per_match.items()} }); match_batch "
+            f"{'+'.join(map(str, CFG4_BATCHES))} {per_batches}")
 
         # ---- phase 12: times ----
-        for kname, (shape, kern, plain) in checks.items():
-            measured[kname] = timed_pair(kern, plain)
-            log(f"phase 12 time {name} {kname} ({shape}): kernel {measured[kname][0]:.4f} "
-                f"ms, plain {measured[kname][1]:.4f} ms  [{card}]")
-        lat = []
-        for i in range(21):
-            t1 = time.perf_counter()
-            ts.match(qs_np[i % CFG4_QUERIES], top_k=10)
-            lat.append((time.perf_counter() - t1) * 1e3)
+        for kname, (shape, kern, plain, (b_ms, b_by)) in checks.items():
+            k_ms, p_ms = timed_pair(kern, plain)
+            kernels[kname].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=None)
+            log(f"phase 12 time {name} {kname} ({shape}): kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        log_match_times(f"phase 12 {name}", match_times(ts, qs_np))
+        if name == "default":
+            del ts, db, qs, rows, checks
+            torch.cuda.empty_cache()
+
+    # Phases 13-17 on the catalog_scale() catalog.
+    ts_p, packed_kernels = run_packed(ts, qs, qs_np, want, single, batched)
+    kernels.update(packed_kernels)
+    run_serving(ts_p, filters_np, qs_np, truth, stream_pcm, stream_rows)
+    source = {"fine_rescan": "fine.cu", "row_sum": "probe.cu"}
+    replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
+                "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
+                "coarse_scan_batch_packed": "hpfw_tpu/ops/pallas_coarse.py:223",
+                "coarse_rescan": "hpfw_tpu/ops/pallas_coarse.py:201",
+                "fine_rescan": "hpfw_tpu/ops/pallas_fine.py:83",
+                "row_sum": "benchmarks/pass1_tune.py:97"}
+    return [dict({"name": k, "route": "cuda",
+                  "source": "hpfw_tpu_torch/csrc/" + source.get(k, "coarse.cu"),
+                  "replaces": replaces[k], "counter": k}, **kernels[k]) for k in replaces]
+
+
+def match_in_batches(ts, qs_np) -> list:
+    """match_batch over the queries in batches of CFG4_BATCHES."""
+    out, at = [], 0
+    for b in CFG4_BATCHES:
+        out += ts.match_batch(qs_np[at:at + b], top_k=10)
+        at += b
+    return out
+
+
+def match_times(ts, qs_np) -> dict:
+    """Host-clock latency of TwoStageDB.match (21 single queries) and
+    queries/s of match_batch at B = 8 and 16 (median of 5 each)."""
+    lat = []
+    for i in range(21):
+        t1 = time.perf_counter()
+        ts.match(qs_np[i % len(qs_np)], top_k=10)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    out = {"median": statistics.median(lat), "min": min(lat), "max": max(lat)}
+    for b in (8, 16):
         bat = []
         for _ in range(5):
             t1 = time.perf_counter()
-            ts.match_batch(qs_np[:8], top_k=10)
+            ts.match_batch(qs_np[:b], top_k=10)
             bat.append(time.perf_counter() - t1)
-        log(f"phase 12 {name} match latency (host clock, {CFG4_TRACKS} tracks): median "
-            f"{statistics.median(lat):.3f} ms, min {min(lat):.3f} ms, max {max(lat):.3f} ms "
-            f"over {len(lat)}; match_batch B=8: median {statistics.median(bat) * 1e3:.3f} ms "
-            f"= {8 / statistics.median(bat):.1f} queries/s over {len(bat)}  [{card}]")
-        del ts, db, qs, rows, checks
-        torch.cuda.empty_cache()
+        out[b] = (statistics.median(bat) * 1e3, b / statistics.median(bat))
+    return out
 
-    check(all(launches[k] > 0 for k in launches), f"catalog launches {launches}")
-    source = "hpfw_tpu_torch/csrc/coarse.cu"
-    replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
-                "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
-                "coarse_rescan": "hpfw_tpu/ops/pallas_coarse.py:201",
-                "fine_rescan": "hpfw_tpu/ops/pallas_fine.py:83"}
-    return [{"name": k, "route": "cuda",
-             "source": source if k != "fine_rescan" else "hpfw_tpu_torch/csrc/fine.cu",
-             "replaces": replaces[k], "launches": launches[k], "max_abs_err": errs[k],
-             "ms": measured[k][0], "plain_ms": measured[k][1]} for k in replaces]
+
+def log_match_times(tag: str, t: dict) -> None:
+    log(f"{tag} match latency (host clock, {CFG4_TRACKS} tracks): median "
+        f"{t['median']:.3f} ms, min {t['min']:.3f} ms, max {t['max']:.3f} ms over 21; "
+        + "; ".join(f"match_batch B={b}: median {t[b][0]:.3f} ms = {t[b][1]:.1f} queries/s"
+                    for b in (8, 16)) + f" (median of 5)")
+
+
+def same_results(a, b) -> bool:
+    return all(x[0] == y[0] and np.array_equal(x[1], y[1]) and np.array_equal(x[2], y[2])
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def run_packed(ts, qs, qs_np, want, single, batched):
+    """Phases 13-14 on the catalog_scale() TwoStageDB ts of phase 10: the
+    nibble-packed pass-1 rows, packed K4, the load-floor probe, and the packed
+    matcher. Returns (the packed TwoStageDB, the per-kernel results of packed
+    K4 and the probe)."""
+    from hpfw_tpu_torch.match.scaled import TwoStageDB, _phase_variants
+    from hpfw_tpu_torch.ops import coarse_scan, probe
+
+    # ---- phase 13: packed pass-1 rows, packed K4 and the probe ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed1 = coarse_scan.pack_coarse_nibbles(ts.db_c1)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    log(f"phase 13 pack: pass-1 DB {tuple(ts.db_c1.shape)} int8 ({nbytes(ts.db_c1) / 1e9:.3f} "
+        f"GB) -> {tuple(packed1.shape)} packed ({nbytes(packed1) / 1e9:.3f} GB) in "
+        f"{pack_s * 1e3:.1f} ms")
+    rows1, prow1 = ts.db_c1[:KERNEL_ROWS], packed1[:KERNEL_ROWS]
+    q1 = _phase_variants(qs[:8], stride=ts.stride, phases=ts.prefilter_phases,
+                         kind=ts.coarse_kind, channels=ts.prefilter_channels)[0]
+    q1 = q1.reshape(-1, *q1.shape[2:])
+    lc = ts.lc_true
+
+    def packed_k():
+        return coarse_scan.coarse_scan_batch_packed_kernel(q1, prow1, lc_true=lc)
+
+    def packed_plain():
+        return coarse_scan.coarse_scan_batch_packed_ref(q1, prow1, lc_true=lc)
+
+    def int8_k():
+        return coarse_scan.coarse_scan_batch_kernel(q1, rows1, lc_true=lc)
+
+    got, ref, int8 = packed_k(), packed_plain(), int8_k()
+    torch.cuda.synchronize()
+    err = max(int((a - b).abs().max()) for a, b in zip(got + got, ref + int8))
+    check(err == 0, f"packed K4 differs from its plain version or from int8 K4 by {err}")
+    shape = (f"{KERNEL_ROWS} packed rows x {lc} windows x {ts.prefilter_channels} channels, "
+             f"{q1.shape[0]} lanes (8 queries x {ts.prefilter_phases} phases)")
+    log(f"phase 13 coarse_scan_batch_packed: {shape}: equal to its plain version and to "
+        f"int8 K4 on the unpacked rows")
+    dbs = {"coarse DB": ts.db_c, "packed pass-1 DB": packed1}
+    probe_err = max(int((probe.row_sum_kernel(d) - torch.sum(d, dim=1, dtype=torch.int32))
+                        .abs().max()) for d in dbs.values())
+    check(probe_err == 0, f"the probe differs from torch.sum by {probe_err}")
+    log(f"phase 13 probe: row sums over the coarse DB {tuple(ts.db_c.shape)} and the packed "
+        f"pass-1 DB {tuple(packed1.shape)} equal to torch.sum(dtype=int32)")
+    # The probe's own path: one read of each DB, the measured floor.
+    start_path()
+    for d in dbs.values():
+        probe.row_sum(d)
+    log(f"phase 13 probe path launches: {end_path()}")
+
+    # Times: int8, packed, packed, int8 for the two layouts; then the plain version.
+    i1, p1, p2, i2 = cuda_ms(int8_k), cuda_ms(packed_k), cuda_ms(packed_k), cuda_ms(int8_k)
+    k_ms, plain_ms = timed_pair(packed_k, packed_plain)
+    # The pass-1 shape of one match: one query's phases over every row.
+    qm = q1[:ts.prefilter_phases]
+    whole = [cuda_ms(lambda: coarse_scan.coarse_scan_batch_kernel(qm, ts.db_c1, lc_true=lc)),
+             cuda_ms(lambda: coarse_scan.coarse_scan_batch_packed_kernel(qm, packed1,
+                                                                          lc_true=lc))]
+    whole += [cuda_ms(lambda: coarse_scan.coarse_scan_batch_packed_kernel(qm, packed1,
+                                                                           lc_true=lc)),
+              cuda_ms(lambda: coarse_scan.coarse_scan_batch_kernel(qm, ts.db_c1, lc_true=lc))]
+    n_off1 = lc - q1.shape[1] + 1
+    pk_bound = bound(nbytes(prow1, q1) + 8 * q1.shape[0] * KERNEL_ROWS,
+                     2 * KERNEL_ROWS * n_off1 * q1.numel(), "int8_tensor")
+    log(f"phase 13 time packed K4 ({shape}): {p1:.4f}/{p2:.4f} ms against int8 K4 "
+        f"{i1:.4f}/{i2:.4f} ms on the same rows (turns int8, packed, packed, int8); "
+        f"packed {k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {pk_bound[0]:.4f} ms "
+        f"({pk_bound[1]})")
+    log(f"phase 13 time one match's pass 1 ({qm.shape[0]} lanes over all "
+        f"{ts.db_c1.shape[0]} rows): int8 K4 {whole[0]:.4f}/{whole[3]:.4f} ms, packed K4 "
+        f"{whole[1]:.4f}/{whole[2]:.4f} ms (turns int8, packed, packed, int8)")
+    probe_res = {}
+    for label, d in dbs.items():
+        kt, pt = timed_pair(lambda: probe.row_sum_kernel(d), lambda: probe.row_sum_ref(d))
+        lib = cuda_ms(lambda: torch.sum(d, dim=1, dtype=torch.int32))
+        b_ms, b_by = bound(nbytes(d) + 4 * d.shape[0], d.numel(), "int32")
+        gbs = nbytes(d) / (kt * 1e-3) / 1e9
+        log(f"phase 13 time probe over the {label} ({nbytes(d) / 1e9:.3f} GB): kernel "
+            f"{kt:.4f} ms = {gbs:.1f} GB/s ({gbs / HBM_BYTES_PER_S * 1e11:.1f}% of 3.35 "
+            f"TB/s), torch.sum {lib:.4f} ms = {nbytes(d) / (lib * 1e-3) / 1e9:.1f} GB/s, "
+            f"plain {pt:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        probe_res[label] = (kt, pt, lib, b_ms, b_by)
+    kt, pt, lib, b_ms, b_by = probe_res["coarse DB"]
+
+    # ---- phase 14: the packed matcher ----
+    t0 = time.perf_counter()
+    ts_p = TwoStageDB(ts.db, prefilter_pack4=True)
+    torch.cuda.synchronize()
+    check(ts_p.prints is ts.prints and torch.equal(ts_p.db_c, ts.db_c)
+          and torch.equal(ts_p.db_c1, packed1),
+          "the packed TwoStageDB's coarse DBs differ from phase 10's (packed)")
+    log(f"phase 14 TwoStageDB(prefilter_pack4=True) in {time.perf_counter() - t0:.1f} s: "
+        f"db_c1 {tuple(ts_p.db_c1.shape)}, the bytes of phase 13's packing")
+    start_path()
+    p_single = [ts_p.match(q, top_k=10) for q in qs_np]
+    p_match = end_path()
+    start_path()
+    p_batched = match_in_batches(ts_p, qs_np)
+    p_batch = end_path()
+    check(same_results(p_single, single) and same_results(p_batched, batched),
+          "packed matcher results differ from the int8 matcher's (phase 10)")
+    top = sum((r[0][0], int(r[1][0]), int(r[2][0])) == w for r, w in zip(p_single, want))
+    check(top == CFG4_QUERIES, f"packed matcher: {top}/{CFG4_QUERIES} at K3's (score, offset)")
+    counts = Counter(p_match) + Counter(p_batch)
+    check(counts["coarse_scan_batch_packed"] > 0 and counts["coarse_scan_batch"] == 0,
+          f"phase 14 launches {dict(counts)}: pass 1 did not run (only) on packed K4")
+    log(f"phase 14 packed matcher: {CFG4_QUERIES}/{CFG4_QUERIES} match and match_batch "
+        f"(8, 8, 4) identical to the int8 matcher (ids, scores, offsets of the top 10), "
+        f"{top}/{CFG4_QUERIES} at K3's (score, offset); launches {CFG4_QUERIES} x match "
+        f"{p_match}, match_batch {p_batch}")
+    # The two matchers in turns (int8, packed, packed, int8), in one call.
+    for label, which in (("int8", ts), ("packed", ts_p), ("packed", ts_p), ("int8", ts)):
+        log_match_times(f"phase 14 {label}", match_times(which, qs_np))
+    return ts_p, {"coarse_scan_batch_packed": {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+                                         "bound_ms": pk_bound[0], "bound_by": pk_bound[1],
+                                         "library_ms": None},
+            "row_sum": {"max_abs_err": probe_err, "ms": kt, "plain_ms": pt, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib}}
+
+
+def run_load(srv, queries, truths, lam, rng, n_queries) -> dict:
+    """Submit n_queries with exponential gaps at lam queries/s (as
+    benchmarks/config4_serve.py does) and wait for every answer. A future that
+    fails for another reason than ServerSaturated fails the run."""
+    from hpfw_tpu_torch import ServerSaturated
+
+    lat, ok, shed, errors = [], [0], [0], []
+    lock = threading.Lock()
+    pending = [n_queries]
+    all_done = threading.Event()
+
+    def callback(i, t_sub):
+        def done(fut):
+            exc = fut.exception()
+            with lock:
+                if exc is None:
+                    lat.append(time.perf_counter() - t_sub)
+                    ok[0] += fut.result()[0][0] == truths[i % len(queries)]
+                elif isinstance(exc, ServerSaturated):
+                    shed[0] += 1
+                else:
+                    errors.append(repr(exc))
+                pending[0] -= 1
+                if pending[0] == 0:
+                    all_done.set()
+        return done
+
+    gaps = rng.exponential(1.0 / lam, n_queries)
+    t_start = time.perf_counter()
+    for i in range(n_queries):
+        t_sub = time.perf_counter()
+        srv.submit(queries[i % len(queries)]).add_done_callback(callback(i, t_sub))
+        time.sleep(max(0.0, gaps[i]))
+    check(all_done.wait(timeout=300), f"offered {lam} q/s: not every query was answered")
+    wall = time.perf_counter() - t_start
+    check(not errors, f"offered {lam} q/s: futures failed: {errors[:3]}")
+    served = n_queries - shed[0]
+    ms = np.array(lat) * 1e3 if lat else np.array([float("nan")])
+    return {"p50": float(np.percentile(ms, 50)), "p99": float(np.percentile(ms, 99)),
+            "achieved": served / wall, "shed": shed[0] / n_queries,
+            "recall": ok[0] / max(served, 1), "n": n_queries}
+
+
+def run_serving(ts, filters_np, qs_np, truth, stream_pcm, stream_rows) -> None:
+    """Phases 15-17 over the packed catalog_scale() TwoStageDB ts."""
+    from hpfw_tpu_torch import MatchServer, StreamingPool, StreamingSession
+
+    cfg = ts.db.cfg
+    truths = [str(t) for t in truth]
+
+    # ---- phase 15: MatchServer under Poisson load ----
+    direct = [ts.match(q) for q in qs_np]
+    rng = np.random.default_rng(1)
+    results = {}
+    start_path()
+    with MatchServer(ts, qs_np.shape[1], **SERVE_KW) as srv:
+        t0 = time.perf_counter()
+        srv.warmup(qs_np[0])
+        warm_s = time.perf_counter() - t0
+        alone = [srv.match(q) for q in qs_np]
+        check(same_results(alone, direct), "a query served alone differs from ts.match")
+        log(f"phase 15 server: warmup of buckets 1, 4, 16 in {warm_s:.2f} s; "
+            f"{len(alone)}/{len(alone)} queries served alone equal ts.match (top "
+            f"{cfg.top_k} ids, scores, offsets)")
+        for lam in SERVE_LOADS:
+            r = run_load(srv, qs_np, truths, lam, rng, int(min(600, max(96, 2.5 * lam))))
+            results[lam] = r
+            log(f"phase 15 offered {lam:.0f} q/s ({r['n']} queries): p50 {r['p50']:.3f} ms, "
+                f"p99 {r['p99']:.3f} ms, achieved {r['achieved']:.1f} q/s, shed "
+                f"{r['shed']:.1%}, recall {r['recall']:.3f}")
+    counts = end_path()
+    check(counts.get("coarse_scan_batch_packed", 0) > 0 and "coarse_scan_batch" not in counts,
+          f"phase 15 launches {counts}: the server's pass 1 did not run on packed K4")
+    sustained = [lam for lam, r in results.items()
+                 if r["shed"] == 0 and r["achieved"] >= 0.90 * lam]
+    if sustained:
+        knee = max(sustained)
+        r = results[knee]
+        note = "; the sweep's top load: raise it to find the knee" if knee == max(SERVE_LOADS) \
+            else ""
+        log(f"phase 15 knee: {knee:.0f} q/s offered, {r['achieved']:.1f} achieved, p50 "
+            f"{r['p50']:.3f} ms, p99 {r['p99']:.3f} ms, zero shed{note}")
+    else:
+        log(f"phase 15 knee: no load met zero shed and >= 90% achieved")
+    log(f"phase 15 launches: {counts}")
+
+    # ---- phase 16: StreamingPool at config-3 scale ----
+    chunk_samples = CHUNK_PRINTS * cfg.hop
+    chunk_s = chunk_samples / cfg.sample_rate
+    for b in POOL_SIZES:
+        pool = StreamingPool(ts, filters_np, cfg, capacity=b, chunk_prints=CHUNK_PRINTS,
+                             query_prints=QUERY_PRINTS, query_buckets=(QUERY_PRINTS,))
+        sids = [str(r) for r in stream_rows[:b]]
+        for sid in sids:
+            pool.add_stream(sid)
+        pos = [0]
+
+        def tick():
+            p = pos[0]
+            pos[0] = p + chunk_samples
+            return pool.feed({sid: stream_pcm[i][p:p + chunk_samples]
+                              for i, sid in enumerate(sids)})
+
+        start_path()
+        t0 = time.perf_counter()
+        for _ in range(POOL_WARM_TICKS):
+            tick()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(POOL_TICKS):
+            out = tick()
+        tick_s = (time.perf_counter() - t0) / POOL_TICKS
+        counts = end_path()
+        correct = sum(h is not None and h.track_id == sid for sid, h in out.items())
+        check(correct == b, f"pool B={b}: {correct}/{b} streams identified")
+        check(all(counts.get(k, 0) > 0 for k in ("cqt", "fingerprint",
+                                                  "coarse_scan_batch_packed", "fine_rescan")),
+              f"pool B={b} launches {counts}: a kernel of the path never ran")
+        stats = pool.latency_stats()
+        log(f"phase 16 pool B={b}: {correct}/{b} streams identified; warm {POOL_WARM_TICKS} "
+            f"ticks in {warm_s:.2f} s; tick {tick_s * 1e3:.3f} ms over {POOL_TICKS} (match "
+            f"p50 {stats['match_p50_ms']:.3f} ms) -> {b * chunk_s / tick_s:.1f} real-time "
+            f"streams a card (chunk {chunk_s:.3f} s); launches {counts}")
+
+    # ---- phase 17: one StreamingSession (rigid) ----
+    sess = StreamingSession(ts, filters_np, cfg, query_prints=QUERY_PRINTS,
+                            chunk_prints=CHUNK_PRINTS)
+    live = stream_pcm[0][:int(SESSION_SECONDS * cfg.sample_rate)]
+    start_path()
+    for p in range(0, len(live), chunk_samples):
+        best = sess.feed(live[p:p + chunk_samples])
+    counts = end_path()
+    check(best is not None and best.track_id == str(stream_rows[0]),
+          f"session: {best}, want track {stream_rows[0]}")
+    st = sess.latency_stats()
+    log(f"phase 17 session: {SESSION_SECONDS:.0f} s stream -> track {best.track_id} score "
+        f"{best.score} offset {best.offset} confidence {best.confidence:.3f}; "
+        f"{st['n_matches']} matches, match p50 {st['match_p50_ms']:.3f} ms p99 "
+        f"{st['match_p99_ms']:.3f} ms, step p50 {st['step_p50_ms']:.3f} ms p99 "
+        f"{st['step_p99_ms']:.3f} ms; launches {counts}")
 
 
 if __name__ == "__main__":

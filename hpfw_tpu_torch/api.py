@@ -5,11 +5,11 @@
     build_db(catalog)       -> FingerprintDB
 
 Functions take and return numpy with the shapes and dtypes of hpfw_tpu.api
-(prints are (N, 2) uint32). Work runs on an explicit device: the `device`
-argument, else the device of the filters tensor or DB passed in, else the
-CPU where numpy inputs live. On a CUDA device the hot path is the three
-kernels in csrc/; on the CPU it is their plain PyTorch versions. Nothing
-falls back from one to the other.
+(prints are (N, 2) uint32). Work runs on the `device` argument, else the
+device of the filters tensor or DB passed in, else the card when torch sees
+one: the CPU only when the caller asks for it or there is no card. On a
+CUDA device the hot path is the three kernels in csrc/; on the CPU it is
+their plain PyTorch versions. Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -23,12 +23,18 @@ from .match import matcher
 from .ops import fused
 
 
+def default_device() -> torch.device:
+    """Where work runs when the caller names no device: the card when torch
+    sees one, else the CPU."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def _resolve_device(device, filters) -> torch.device:
     if device is not None:
         return torch.device(device)
     if isinstance(filters, torch.Tensor):
         return filters.device
-    return torch.device("cpu")
+    return default_device()
 
 
 def _filters_on(filters, cfg: HpfwConfig, device: torch.device) -> torch.Tensor:
@@ -142,18 +148,19 @@ class FingerprintDB:
     """In-memory fingerprint database: packed prints + config + filters.
 
     Saves and loads the same format_version=1 .npz as hpfw_tpu.api's
-    FingerprintDB, and holds its device arrays on `device`.
+    FingerprintDB, and holds its device arrays on `device` (default: the
+    card when torch sees one).
     """
 
     def __init__(self, cfg: HpfwConfig, filters: np.ndarray,
                  track_ids: list[str], prints: np.ndarray, lengths: np.ndarray,
-                 *, device: str | torch.device = "cpu"):
+                 *, device: str | torch.device | None = None):
         self.cfg = cfg
         self.filters = np.asarray(filters, dtype=np.float32)
         self.track_ids = list(track_ids)
         self.prints = np.asarray(prints, dtype=np.uint32)    # (T, L, 2) padded
         self.lengths = np.asarray(lengths, dtype=np.int32)   # (T,)
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None else default_device()
         t = len(self.track_ids)
         if self.prints.ndim != 3 or self.prints.shape[0] != t or self.prints.shape[2] != 2:
             raise ValueError(f"prints must be ({t}, L, 2), got {self.prints.shape}")
@@ -193,7 +200,8 @@ class FingerprintDB:
         )
 
     @classmethod
-    def load(cls, path: str, *, device: str | torch.device = "cpu") -> "FingerprintDB":
+    def load(cls, path: str, *,
+             device: str | torch.device | None = None) -> "FingerprintDB":
         with np.load(path, allow_pickle=False) as z:
             if int(z["format_version"]) != 1:
                 raise ValueError(

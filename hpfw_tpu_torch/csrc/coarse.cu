@@ -2,8 +2,8 @@
 //
 // Replaces hpfw_tpu/ops/pallas_coarse.py::_tile_best (driven by
 // pallas_coarse_scan) and ::_stacked_kernel (driven by
-// pallas_coarse_scan_batch_stacked and pallas_coarse_rescan_stacked): one
-// body, three host surfaces. For query lane g of group b and DB row r:
+// pallas_coarse_scan_batch_stacked, with and without packed4, and
+// pallas_coarse_rescan_stacked): one body, four host surfaces. For query lane g of group b and DB row r:
 //   corr(o) = sum_{j < Nc} sum_{c < C} q[g][j][c] * d[row][o + j][c]
 //   for o < n_off = n_win - Nc + 1, then best = max_o corr(o) and
 //   first = min {o : corr(o) = best},
@@ -26,6 +26,15 @@
 // them a chunk), and keeps its best as one 64-bit key
 // (corr * 2^32 + 2^32 - 1 - offset) whose maximum is the highest correlation
 // at the lowest offset; scores may be negative.
+//
+// PACKED rows (pass 1 of the two-pass matcher under prefilter_pack4) hold two
+// features a byte, feature 2j in the low nibble of byte j: a window of C
+// channels is C/2 contiguous bytes, whole words since C % 8 == 0. Staging
+// reads half the global bytes, sign-extends both nibbles of each byte with
+// word-wide bit ops and stores the same int8 chunks the unpacked path
+// stores, so shared memory, the dp4a loop and the results are those of the
+// int8 rows.
+// The bound stays instruction issue, so the saving is global bytes only.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -59,7 +68,39 @@ __device__ __forceinline__ int4 load_chunk(const int* __restrict__ w0, int c, in
                    w + 3 < words ? __ldg(w0 + w + 3) : 0);
 }
 
-template <int K>
+// One packed word -> 8 features: each byte's low nibble, then its high
+// nibble, sign-extended by OR-ing 0xf0 into each byte whose nibble has bit 3
+// set (bit 3 of every byte times 0x1e is 0xf0 there; no byte carries).
+__device__ __forceinline__ void unpack_word(unsigned p, int& w0, int& w1) {
+  const unsigned lo = (p & 0x0f0f0f0fu) | ((p & 0x08080808u) * 0x1eu);
+  const unsigned q = p >> 4;
+  const unsigned hi = (q & 0x0f0f0f0fu) | ((q & 0x08080808u) * 0x1eu);
+  w0 = (int)__byte_perm(lo, hi, 0x5140);   // lo.b0 hi.b0 lo.b1 hi.b1
+  w1 = (int)__byte_perm(lo, hi, 0x7362);   // lo.b2 hi.b2 lo.b3 hi.b3
+}
+
+// Chunk c (features 16c .. 16c + 15) of the packed window whose first word
+// is p0: packed words 2c and 2c + 1, zero past `pwords`. A packed window is
+// 8-byte aligned when pwords is even (rows are a multiple of 16 bytes).
+__device__ __forceinline__ int4 load_chunk_packed(const int* __restrict__ p0, int c,
+                                                  int pwords) {
+  int a, b;
+  if ((pwords & 1) == 0) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(p0) + c);
+    a = v.x;
+    b = v.y;
+  } else {
+    const int w = 2 * c;
+    a = w < pwords ? __ldg(p0 + w) : 0;
+    b = w + 1 < pwords ? __ldg(p0 + w + 1) : 0;
+  }
+  int4 out;
+  unpack_word((unsigned)a, out.x, out.y);
+  unpack_word((unsigned)b, out.z, out.w);
+  return out;
+}
+
+template <int K, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 coarse_kernel(const int* __restrict__ queries, int lanes, int lane_chunk, int n_chunks,
               int nc, int words, const int* __restrict__ db, long long row_words,
@@ -97,7 +138,11 @@ coarse_kernel(const int* __restrict__ queries, int lanes, int lane_chunk, int n_
       if (i < n_r * row_chunks) {
         const int rr = i / row_chunks, rem = i - rr * row_chunks;
         const int win = rem / n_ch, c = rem - win * n_ch;
-        v[u] = load_chunk(db + s_row[rr] * row_words + (long long)win * words, c, words);
+        if (PACKED)
+          v[u] = load_chunk_packed(db + s_row[rr] * row_words + (long long)win * (words / 2),
+                                   c, words / 2);
+        else
+          v[u] = load_chunk(db + s_row[rr] * row_words + (long long)win * words, c, words);
         dst[u] = (rr * n_win + win) * stride + c;
       }
     }
@@ -146,15 +191,15 @@ coarse_kernel(const int* __restrict__ queries, int lanes, int lane_chunk, int n_
   }
 }
 
-template <int K>
+template <int K, bool PACKED>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const int* queries,
                    int lanes, int lane_chunk, int n_chunks, int nc, int words,
                    const int* db, long long row_words, int n_win, const int* rows,
                    int n_rows, int rows_per_block, int* best, int* first) {
   cudaError_t err = cudaFuncSetAttribute(
-      coarse_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      coarse_kernel<K, PACKED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  coarse_kernel<K><<<grid, THREADS, smem, stream>>>(
+  coarse_kernel<K, PACKED><<<grid, THREADS, smem, stream>>>(
       queries, lanes, lane_chunk, n_chunks, nc, words, db, row_words, n_win, rows,
       n_rows, rows_per_block, best, first);
   return cudaGetLastError();
@@ -163,7 +208,9 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const int* queri
 }  // namespace
 
 // queries: (n_groups * lanes, nc, channels) int8; db: rows of row_bytes int8,
-// the first n_win * channels of which are scanned; both 16-byte aligned.
+// the first n_win * channels of which are scanned (n_win * channels / 2 when
+// packed: nibble-packed rows, row_bytes a multiple of 16); both 16-byte
+// aligned.
 // rows: (n_groups, n_rows) row indices or null (rows 0 .. n_rows - 1, one
 // group). best, first: (n_groups * lanes, n_rows). A block stages
 // rows_per_block rows and lane_chunk lanes, in
@@ -173,10 +220,11 @@ extern "C" int hpfw_coarse_scan(const signed char* queries, int n_groups, int la
                                 int nc, int channels, const signed char* db,
                                 long long row_bytes, int n_win, const int* rows,
                                 int n_rows, int rows_per_block, int lane_chunk,
-                                int* best, int* first, cudaStream_t stream) {
+                                int packed, int* best, int* first,
+                                cudaStream_t stream) {
   if (n_groups <= 0 || lanes <= 0 || n_rows <= 0 || nc < 0 || n_win - nc + 1 < 1 ||
-      channels % 8 || channels < 8 || channels > 64 || row_bytes % 4 ||
-      row_bytes < (long long)n_win * channels || rows_per_block <= 0 ||
+      channels % 8 || channels < 8 || channels > 64 || row_bytes % (packed ? 16 : 4) ||
+      row_bytes < (long long)n_win * channels / (packed ? 2 : 1) || rows_per_block <= 0 ||
       rows_per_block > MAX_ROWS || lane_chunk <= 0 || (rows == nullptr && n_groups != 1) ||
       (reinterpret_cast<size_t>(queries) | reinterpret_cast<size_t>(db)) % 16)
     return (int)cudaErrorInvalidValue;
@@ -193,10 +241,14 @@ extern "C" int hpfw_coarse_scan(const signed char* queries, int n_groups, int la
   const long long row_words = row_bytes / 4;
   cudaError_t err;
   switch (k) {
-#define HPFW_COARSE_CASE(K)                                                        \
-  case K:                                                                          \
-    err = launch<K>(grid, smem, stream, q, lanes, lane_chunk, n_chunks, nc, words, \
-                    d, row_words, n_win, rows, n_rows, rows_per_block, best, first); \
+#define HPFW_COARSE_CASE(K)                                                          \
+  case K:                                                                            \
+    err = packed ? launch<K, true>(grid, smem, stream, q, lanes, lane_chunk, n_chunks, \
+                                   nc, words, d, row_words, n_win, rows, n_rows,      \
+                                   rows_per_block, best, first)                       \
+                 : launch<K, false>(grid, smem, stream, q, lanes, lane_chunk, n_chunks, \
+                                    nc, words, d, row_words, n_win, rows, n_rows,     \
+                                    rows_per_block, best, first);                     \
     break;
     HPFW_COARSE_CASE(1)
     HPFW_COARSE_CASE(2)

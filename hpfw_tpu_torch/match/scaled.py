@@ -17,8 +17,9 @@ Options, as in the reference: query_phases > 1 scans P phase-shifted coarse
 views of the query and keeps the best per track (a query whose true offset
 is not a multiple of the stride otherwise straddles two DB windows); the
 two-pass prefilter sweeps the whole catalog with a cheaper pass 1 (fewer
-phases, optionally a channel prefix) and rescans only the top `prefilter`
-tracks per query with every phase (the block-diagonal rescan).
+phases, optionally a channel prefix, optionally nibble-packed rows) and
+rescans only the top `prefilter` tracks per query with every phase (the
+block-diagonal rescan).
 
 Every candidate ranking breaks ties toward the lower track index, the
 phase choice toward the first phase, and offsets toward the first offset,
@@ -33,10 +34,11 @@ import os
 import numpy as np
 import torch
 
-from ..api import FingerprintDB, _to_tensor_prints
+from ..api import FingerprintDB, _to_tensor_prints, default_device
 from ..config import HpfwConfig
 from ..ops import coarse as coarse_ops
-from ..ops.coarse_scan import coarse_rescan, coarse_scan, coarse_scan_batch, flat_width
+from ..ops.coarse_scan import (coarse_rescan, coarse_scan, coarse_scan_batch,
+                               coarse_scan_batch_packed, flat_width, pack_coarse_nibbles)
 from ..ops.fine import fine_rescan_batch, plane_pad
 from .stretch import print_variants, stretch_grid
 
@@ -108,14 +110,19 @@ def _phase_select(best_l, idx_l, rs, stride):
     return best, idx_sel * stride - rs[p_star]
 
 
-def _coarse_best_phased(queries, db_c, *, stride, phases, kind, channels, lc_true):
+def _coarse_best_phased(queries, db_c, *, stride, phases, kind, channels, lc_true,
+                        packed=False):
     """Phase-max coarse stage of B queries in one sweep: their B * P variant
     lanes ride the same scan. Returns ((B, T) best, (B, T) centers of query
-    print 0). A single lane runs the single-query scan."""
+    print 0). A single lane runs the single-query scan, unless the rows are
+    nibble-packed (packed), which only the batch surface reads."""
     qcs, rs = _phase_variants(queries, stride=stride, phases=phases, kind=kind,
                               channels=channels)
     b, p, nc, c = qcs.shape
-    if b * p == 1:
+    if packed:
+        best, idx = coarse_scan_batch_packed(qcs.reshape(b * p, nc, c), db_c,
+                                             lc_true=lc_true)
+    elif b * p == 1:
         best, idx = coarse_scan(qcs[0, 0], db_c, lc_true=lc_true)
         best, idx = best[None], idx[None]
     else:
@@ -125,16 +132,18 @@ def _coarse_best_phased(queries, db_c, *, stride, phases, kind, channels, lc_tru
 
 
 def _coarse_pool_twopass(queries, db_c, db_c1, *, stride, phases, phases1, prefilter,
-                         pool, kind, channels, channels1, lc_true):
+                         pool, kind, channels, channels1, lc_true, packed1):
     """Two-pass phased coarse stage: pass 1 sweeps the whole catalog with
-    phases1 lanes a query on the (possibly channel-prefix) db_c1 and pools
-    the top `prefilter` tracks per query; pass 2 rescans only those rows
-    with all `phases` variants (block-diagonal). The pass-1 pool is sorted
-    ascending, so pass-2 ties still fall to the lower global index.
+    phases1 lanes a query on the (possibly channel-prefix, possibly
+    nibble-packed: packed1) db_c1 and pools the top `prefilter` tracks per
+    query; pass 2 rescans only those rows of the int8 db_c with all `phases`
+    variants (block-diagonal). The pass-1 pool is sorted ascending, so
+    pass-2 ties still fall to the lower global index.
 
     Returns ((B, K) global track indices, (B, K) centers)."""
     best1, _ = _coarse_best_phased(queries, db_c1, stride=stride, phases=phases1,
-                                   kind=kind, channels=channels1, lc_true=lc_true)
+                                   kind=kind, channels=channels1, lc_true=lc_true,
+                                   packed=packed1)
     m = min(prefilter, db_c.shape[0])
     cand_m = _pool_candidates(best1, m).sort(dim=1).values               # (B, M8)
     qcs, rs = _phase_variants(queries, stride=stride, phases=phases, kind=kind,
@@ -146,14 +155,15 @@ def _coarse_pool_twopass(queries, db_c, db_c1, *, stride, phases, phases1, prefi
 
 
 def _two_stage(queries, prints, lengths, db_c, db_c1, *, stride, pool, fine_window,
-               lc_true, kind, channels, phases, phases1, prefilter, channels1):
+               lc_true, kind, channels, phases, phases1, prefilter, channels1, packed1):
     """Batched two-stage match of B equal-length queries (B, N, 2) int32:
-    (B, 3, K) int32 [scores, track index, offsets]."""
+    (B, 3, K) int32 [scores, track index, offsets]. packed1: db_c1 is
+    nibble-packed (read by pass 1 only)."""
     if phases > 1 and prefilter:
         cand, centers = _coarse_pool_twopass(
             queries, db_c, db_c1, stride=stride, phases=phases, phases1=phases1,
             prefilter=prefilter, pool=pool, kind=kind, channels=channels,
-            channels1=channels1, lc_true=lc_true)
+            channels1=channels1, lc_true=lc_true, packed1=packed1)
     else:
         best, centers_all = _coarse_best_phased(
             queries, db_c, stride=stride, phases=phases, kind=kind, channels=channels,
@@ -172,8 +182,9 @@ def _two_stage(queries, prints, lengths, db_c, db_c1, *, stride, pool, fine_wind
 
 class TwoStageDB:
     """Catalog-scale database on one device: prints, lengths and the flat
-    int8 coarse DB (plus a channel-prefix pass-1 DB when
-    prefilter_channels < coarse_channels).
+    int8 coarse DB, plus a pass-1 DB db_c1 when prefilter_channels <
+    coarse_channels (a channel prefix) or prefilter_pack4 (the pass-1 rows
+    nibble-packed, two features a byte; their results are identical).
 
     device defaults to the source FingerprintDB's. On a CUDA device the
     coarse and fine stages run through K4 and K5; on the CPU through their
@@ -196,10 +207,6 @@ class TwoStageDB:
         if mesh is not None:
             raise NotImplementedError(
                 "a sharded TwoStageDB is not ported yet (ROADMAP A12)")
-        if (prefilter_pack4 if prefilter_pack4 is not None
-                else cfg.coarse_prefilter_pack4):
-            raise NotImplementedError(
-                "nibble-packed pass-1 rows are not ported yet (ROADMAP B5, packed4)")
         self.db = db
         self.stride = stride if stride is not None else cfg.db_downsample
         self.coarse_kind = coarse_kind if coarse_kind is not None else cfg.coarse_kind
@@ -215,6 +222,12 @@ class TwoStageDB:
         self.prefilter_channels = pc if pc else self.coarse_channels
         if self.prefilter_channels > self.coarse_channels:
             raise ValueError("prefilter_channels must be <= coarse_channels")
+        self.prefilter_pack4 = bool(prefilter_pack4 if prefilter_pack4 is not None
+                                    else cfg.coarse_prefilter_pack4)
+        if self.prefilter_pack4 and self.coarse_kind == "sum" and self.stride > 7:
+            raise ValueError(
+                "nibble-packed pass-1 rows hold values in [-8, 7]; sum-coarse windows "
+                f"of stride {self.stride} do not fit: use coarse_kind='sign'")
         if self.stride % self.query_phases:
             raise ValueError("query_phases must divide the coarse stride")
         if self.prefilter_phases > 1 and self.stride % self.prefilter_phases:
@@ -240,7 +253,7 @@ class TwoStageDB:
             counts.append(self.prefilter_channels)
         flats = self._derive_coarse(counts)
         self.db_c = flats[0]
-        self.db_c1 = flats[-1]
+        self.db_c1 = pack_coarse_nibbles(flats[-1]) if self.prefilter_pack4 else flats[-1]
 
     def _derive_coarse(self, channel_counts):
         """Flat coarse DBs, one per channel count (prefixes of the first), zero
@@ -281,7 +294,7 @@ class TwoStageDB:
             "coarse_kind": self.coarse_kind,
             "coarse_channels": int(self.coarse_channels),
             "prefilter_channels": int(self.prefilter_channels),
-            "prefilter_pack4": False,
+            "prefilter_pack4": self.prefilter_pack4,
             # The reference's kernels scan whole tiles of this many tracks.
             "coarse_tile": min(128, t & -t),
             "lc_true": int(self.lc_true),
@@ -305,9 +318,10 @@ class TwoStageDB:
             json.dump(manifest, f, indent=1)
 
     @classmethod
-    def load(cls, path: str, *, device: str | torch.device = "cpu") -> "TwoStageDB":
-        """Rebuild a TwoStageDB on device from a save() directory of either
-        package (the single-device Pallas layout), without re-deriving."""
+    def load(cls, path: str, *,
+             device: str | torch.device | None = None) -> "TwoStageDB":
+        """Rebuild a TwoStageDB on device (default: the card when torch sees
+        one) from a save() directory of either package (the single-device Pallas layout), without re-deriving."""
         with open(os.path.join(path, "manifest.json")) as f:
             m = json.load(f)
         if m["format_version"] != cls._CACHE_VERSION:
@@ -316,9 +330,6 @@ class TwoStageDB:
             raise ValueError(
                 "only a single-device cache with flat coarse rows and word planes "
                 "(use_pallas_fine=True, no mesh) loads here; rebuild the cache")
-        if m.get("prefilter_pack4", False):
-            raise NotImplementedError(
-                "nibble-packed pass-1 rows are not ported yet (ROADMAP B5, packed4)")
 
         def grab(name):
             return np.load(os.path.join(path, name + ".npy"), mmap_mode="r")
@@ -329,7 +340,7 @@ class TwoStageDB:
         prints = np.empty((t, l, 2), np.uint32)
         prints[..., 0] = grab("d0")[: t * lpad].reshape(t, lpad)[:, :l]
         prints[..., 1] = grab("d1")[: t * lpad].reshape(t, lpad)[:, :l]
-        dev = torch.device(device)
+        dev = torch.device(device) if device is not None else default_device()
         self = cls.__new__(cls)
         self.db = FingerprintDB(
             cfg, np.load(os.path.join(path, "filters.npy")),
@@ -339,6 +350,7 @@ class TwoStageDB:
         self.coarse_kind = m["coarse_kind"]
         self.coarse_channels = m["coarse_channels"]
         self.prefilter_channels = m.get("prefilter_channels", m["coarse_channels"])
+        self.prefilter_pack4 = bool(m.get("prefilter_pack4", False))
         self.query_phases = cfg.coarse_query_phases
         self.prefilter = cfg.coarse_prefilter
         self.prefilter_phases = cfg.coarse_prefilter_phases
@@ -349,7 +361,8 @@ class TwoStageDB:
         self.lengths = torch.from_numpy(lengths).to(dev)
         self.db_c = torch.from_numpy(np.array(grab("coarse"))).to(dev)
         self.db_c1 = (torch.from_numpy(np.array(grab("coarse1"))).to(dev)
-                      if self.prefilter_channels < self.coarse_channels else self.db_c)
+                      if (self.prefilter_channels < self.coarse_channels
+                          or self.prefilter_pack4) else self.db_c)
         return self
 
     # -- matching --
@@ -400,7 +413,8 @@ class TwoStageDB:
                           stride=self.stride, pool=pool, fine_window=fw,
                           lc_true=self.lc_true, kind=self.coarse_kind,
                           channels=self.coarse_channels, phases=ph, phases1=p1,
-                          prefilter=pf, channels1=c1)
+                          prefilter=pf, channels1=c1,
+                          packed1=bool(pf) and self.prefilter_pack4)
 
     def dispatch(self, query_dev: torch.Tensor, **kw) -> torch.Tensor:
         """One query (N, 2) int32: the (3, K) tensor of dispatch_batch."""

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIB_NAME = "libhpfw_kernels.so"
 
 LAUNCHES = {"cqt": 0, "fingerprint": 0, "score_tracks": 0, "coarse_scan": 0,
-            "coarse_scan_batch": 0, "coarse_rescan": 0, "fine_rescan": 0}
+            "coarse_scan_batch": 0, "coarse_scan_batch_packed": 0, "coarse_rescan": 0,
+            "fine_rescan": 0, "row_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -111,11 +112,12 @@ def library() -> ctypes.CDLL:
                                      ptr, ptr]
     lib.hpfw_score_tracks.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr]
     lib.hpfw_coarse_scan.argtypes = [ptr, i32, i32, i32, i32, ptr, i64, i32, ptr, i32,
-                                     i32, i32, ptr, ptr, ptr]
+                                     i32, i32, i32, ptr, ptr, ptr]
     lib.hpfw_fine_rescan.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr, ptr, i32,
                                      i32, ptr, ptr, ptr]
+    lib.hpfw_row_sum.argtypes = [ptr, i64, i64, ptr, ptr]
     for fn in (lib.hpfw_cqt, lib.hpfw_fingerprint, lib.hpfw_score_tracks,
-               lib.hpfw_coarse_scan, lib.hpfw_fine_rescan):
+               lib.hpfw_coarse_scan, lib.hpfw_fine_rescan, lib.hpfw_row_sum):
         fn.restype = i32
     lib.hpfw_error_string.argtypes = [i32]
     lib.hpfw_error_string.restype = ctypes.c_char_p

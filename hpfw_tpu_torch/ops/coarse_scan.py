@@ -10,12 +10,14 @@ offsets all correlate negatively reports 0 at a padded offset, as the
 reference does.
 
 The coarse DB is FLAT, (T, Lc_pad * C) int8 rows (flatten_coarse), the
-layout the reference stores and saves. Three surfaces, one CUDA kernel
-(K4, csrc/coarse.cu):
-    coarse_scan        one query against every row          (B4)
-    coarse_scan_batch  G query lanes against every row      (B5)
-    coarse_rescan      query b's V variants against only its own M rows,
-                       read through an index array          (B6)
+layout the reference stores and saves; pass 1 of the two-pass matcher may
+read it nibble-packed instead (pack_coarse_nibbles: two features a byte,
+half the bytes). Four surfaces, one CUDA kernel (K4, csrc/coarse.cu):
+    coarse_scan               one query against every row          (B4)
+    coarse_scan_batch         G query lanes against every row      (B5)
+    coarse_scan_batch_packed  the same over nibble-packed rows     (B5 packed4)
+    coarse_rescan             query b's V variants against only its own M
+                              rows, read through an index array    (B6)
 On CUDA tensors each launches K4; on CPU tensors each runs its plain
 version (the *_ref functions), which the tests hold against the reference.
 """
@@ -39,6 +41,8 @@ ROW_SMEM = 104 * 1024
 QUERY_SMEM = 32 * 1024
 MAX_SMEM = 227 * 1024
 MAX_GRID_Y = 65535
+# Rows a chunk of pack_coarse_nibbles packs at once.
+PACK_CHUNK_ROWS = 8192
 
 
 def flat_width(lc: int, c: int) -> int:
@@ -57,6 +61,32 @@ def flatten_coarse(db_c: torch.Tensor) -> torch.Tensor:
     return db_c.reshape(t, -1)
 
 
+def pack_coarse_nibbles(db_flat: torch.Tensor) -> torch.Tensor:
+    """(T, lcw) int8 flat coarse rows, values in [-8, 7] -> (T, lcw_pad / 2)
+    int8, feature 2j in the low nibble of byte j and feature 2j + 1 in the
+    high nibble, lcw padded with zero features to a multiple of 256; the
+    bytes of hpfw_tpu.ops.pallas_coarse.pack_coarse_nibbles. Packed in int8,
+    PACK_CHUNK_ROWS rows at a time, so no temporary is larger than a chunk."""
+    t, lcw = db_flat.shape
+    width = -(-lcw // 256) * 256
+    out = torch.empty((t, width // 2), dtype=torch.int8, device=db_flat.device)
+    for i in range(0, t, PACK_CHUNK_ROWS):
+        blk = db_flat[i:i + PACK_CHUNK_ROWS]
+        if width != lcw:
+            blk = torch.nn.functional.pad(blk, (0, width - lcw))
+        out[i:i + PACK_CHUNK_ROWS] = (blk[:, 0::2] & 15) | (blk[:, 1::2] * 16)
+    return out
+
+
+def unpack_coarse_nibbles(db_packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack_coarse_nibbles: (T, W) packed -> (T, 2W) int8, each
+    nibble sign-extended (the padding stays as zero features)."""
+    p = db_packed.to(torch.int16)
+    lo = ((p & 15) ^ 8) - 8
+    hi = p >> 4
+    return torch.stack([lo, hi], dim=2).reshape(p.shape[0], -1).to(torch.int8)
+
+
 def _windows(db_flat: torch.Tensor, c: int, lc_true: int) -> torch.Tensor:
     """Flat rows -> (T, lc_true, C) view of the scanned windows."""
     t, lcw = db_flat.shape
@@ -64,6 +94,12 @@ def _windows(db_flat: torch.Tensor, c: int, lc_true: int) -> torch.Tensor:
         raise ValueError(f"flat rows of {lcw} bytes do not hold {lc_true} windows "
                          f"of {c} channels")
     return db_flat.view(t, lcw // c, c)[:, :lc_true]
+
+
+def _check_packed(db_packed: torch.Tensor, c: int, lc_true: int) -> None:
+    if db_packed.dim() != 2 or 2 * db_packed.shape[1] < lc_true * c:
+        raise ValueError(f"packed rows of shape {tuple(db_packed.shape)} do not hold "
+                         f"{lc_true} windows of {c} channels")
 
 
 def _check_off(nc: int, lc_true: int) -> None:
@@ -91,6 +127,16 @@ def coarse_scan_batch_ref(query_cs: torch.Tensor, db_flat: torch.Tensor, *,
     return best, first
 
 
+def coarse_scan_batch_packed_ref(query_cs: torch.Tensor, db_packed: torch.Tensor, *,
+                                 lc_true: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of coarse_scan_batch_packed: unpack the rows, then
+    coarse_scan_batch_ref over their first lc_true windows."""
+    c = query_cs.shape[2]
+    _check_packed(db_packed, c, lc_true)
+    flat = unpack_coarse_nibbles(db_packed)[:, :lc_true * c]
+    return coarse_scan_batch_ref(query_cs, flat, lc_true=lc_true)
+
+
 def coarse_scan_ref(query_c: torch.Tensor, db_flat: torch.Tensor, *,
                     lc_true: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of coarse_scan: ((T,), (T,)) int32."""
@@ -109,11 +155,12 @@ def coarse_rescan_ref(query_cs: torch.Tensor, db_flat: torch.Tensor,
 
 def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
             rows: torch.Tensor | None, n_groups: int, n_rows: int,
-            lc_true: int) -> tuple[torch.Tensor, torch.Tensor]:
+            lc_true: int, packed: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """K4 over n_groups groups of `lanes` lanes and n_rows rows each.
 
     query_cs: (n_groups * lanes, Nc, C) int8. rows: (n_groups, n_rows) int32
-    indices into db_flat, or None for rows 0 .. n_rows - 1. Returns
+    indices into db_flat, or None for rows 0 .. n_rows - 1. packed: db_flat
+    holds nibble-packed rows (pack_coarse_nibbles). Returns
     ((n_groups * lanes, n_rows), same) int32 best and first offsets."""
     _build.require(db_flat, "db_flat", torch.int8, 2)
     _build.require(query_cs, "query_cs", torch.int8, 3, db_flat.device)
@@ -125,7 +172,10 @@ def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
         raise ValueError("coarse rows must be 16-byte aligned")
     if query_cs.data_ptr() % 16:
         query_cs = query_cs.clone()
-    _windows(db_flat, c, lc_true)
+    if packed:
+        _check_packed(db_flat, c, lc_true)
+    else:
+        _windows(db_flat, c, lc_true)
     _check_off(nc, lc_true)
     if rows is not None:
         _build.require(rows, "rows", torch.int32, 2, db_flat.device)
@@ -151,7 +201,8 @@ def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
                       query_cs.data_ptr(), n_groups, lanes, nc, c,
                       db_flat.data_ptr(), lcw, lc_true,
                       rows.data_ptr() if rows is not None else None, n_rows,
-                      rows_per_block, lane_chunk, best.data_ptr(), first.data_ptr())
+                      rows_per_block, lane_chunk, int(packed), best.data_ptr(),
+                      first.data_ptr())
     return best, first
 
 
@@ -166,6 +217,13 @@ def coarse_scan_batch_kernel(query_cs, db_flat, *, lc_true):
     """K4, G lanes against every row: the same contract as coarse_scan_batch_ref."""
     return _launch("coarse_scan_batch", query_cs, db_flat, None, 1,
                    db_flat.shape[0], lc_true)
+
+
+def coarse_scan_batch_packed_kernel(query_cs, db_packed, *, lc_true):
+    """K4, G lanes against every nibble-packed row: the same contract as
+    coarse_scan_batch_packed_ref."""
+    return _launch("coarse_scan_batch_packed", query_cs, db_packed, None, 1,
+                   db_packed.shape[0], lc_true, packed=True)
 
 
 def coarse_rescan_kernel(query_cs, db_flat, rows, *, lc_true):
@@ -195,6 +253,16 @@ def coarse_scan_batch(query_cs: torch.Tensor, db_flat: torch.Tensor, *, lc_true:
     """coarse_scan for G equal-length queries (G, Nc, C): ((G, T), (G, T))."""
     return _dispatch(coarse_scan_batch_kernel, coarse_scan_batch_ref, db_flat,
                      query_cs, db_flat, lc_true=lc_true)
+
+
+def coarse_scan_batch_packed(query_cs: torch.Tensor, db_packed: torch.Tensor, *,
+                             lc_true: int):
+    """coarse_scan_batch over nibble-packed rows (pack_coarse_nibbles), with
+    the same results as over the unpacked rows. lc_true is required: the
+    256-feature pad adds zero windows, and a zero offset there would beat
+    offsets whose real correlations are all negative."""
+    return _dispatch(coarse_scan_batch_packed_kernel, coarse_scan_batch_packed_ref,
+                     db_packed, query_cs, db_packed, lc_true=lc_true)
 
 
 def coarse_rescan(query_cs: torch.Tensor, db_flat: torch.Tensor, rows: torch.Tensor,

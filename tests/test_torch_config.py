@@ -103,7 +103,9 @@ def test_port_imports_no_jax():
             "hpfw_tpu_torch.ops._build, hpfw_tpu_torch.match.matcher, "
             "hpfw_tpu_torch.ops.coarse, hpfw_tpu_torch.ops.coarse_scan, "
             "hpfw_tpu_torch.ops.fine, hpfw_tpu_torch.match.scaled, "
-            "hpfw_tpu_torch.match.stretch; "
+            "hpfw_tpu_torch.match.stretch, hpfw_tpu_torch.ops.probe, "
+            "hpfw_tpu_torch.serve, hpfw_tpu_torch.streaming.session, "
+            "hpfw_tpu_torch.streaming.pool; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hpfw_tpu')]; "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

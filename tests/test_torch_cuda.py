@@ -12,13 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from hpfw_tpu_torch import api
+from hpfw_tpu_torch import ChunkedExtractor, MatchServer, api
 from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.filters import filters_from_jax, fix_eigenvector_signs
 from hpfw_tpu_torch.io import synth
 from hpfw_tpu_torch.match import matcher
 from hpfw_tpu_torch.match.scaled import TwoStageDB
-from hpfw_tpu_torch.ops import _build, coarse_scan, fine, frontend
+from hpfw_tpu_torch.ops import _build, coarse_scan, fine, frontend, probe
 from hpfw_tpu_torch.ops import fingerprint as fp_ops
 
 pytestmark = pytest.mark.cuda
@@ -113,7 +113,8 @@ def test_api_on_card_matches_cpu_and_counts_launches(dev):
     ids, scores, offsets = api.match(q, db, top_k=3)
     assert _build.LAUNCHES == {"cqt": 5, "fingerprint": 5, "score_tracks": 1,
                                "coarse_scan": 0, "coarse_scan_batch": 0,
-                               "coarse_rescan": 0, "fine_rescan": 0}
+                               "coarse_scan_batch_packed": 0, "coarse_rescan": 0,
+                               "fine_rescan": 0, "row_sum": 0}
     cpu_db = api.build_db(tracks, filters, cfg, device="cpu")
     diff = np.bitwise_count(db.prints ^ cpu_db.prints).sum()
     assert diff <= max(2, db.prints.size * 32 // 10000)
@@ -129,6 +130,23 @@ def test_bucketing_exact_on_card(dev):
         plain = api.fingerprint(cut, filt, cfg, bucket_s=0)
         bucketed = api.fingerprint(cut, filt, cfg, bucket_s=0.25)
         np.testing.assert_array_equal(bucketed, plain)
+
+
+def test_chunked_extractor_defaults_to_the_card(dev):
+    """Built from numpy filters with no device named, the extractor runs K1
+    and K2 on the card, one each a window, with api.fingerprint's prints."""
+    cfg = HpfwConfig(**SMALL)
+    filters = _filters(cfg)
+    pcm = synth.synth_track(41, 2.0, cfg)
+    ex = ChunkedExtractor(filters, cfg, chunk_prints=16)
+    assert ex.device.type == "cuda"
+    _build.reset_launch_counts()
+    got = ex.feed(pcm)
+    windows = got.shape[0] // 16
+    assert windows > 0
+    assert _build.LAUNCHES["cqt"] == _build.LAUNCHES["fingerprint"] == windows
+    np.testing.assert_array_equal(got, api.fingerprint(pcm, filters, cfg,
+                                                       device=dev)[:got.shape[0]])
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -179,6 +197,40 @@ def test_coarse_kernel_matches_plain(dev, c, lc, nc, values):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("c,lc,nc", [(32, 161, 26), (64, 161, 26), (8, 40, 5), (24, 161, 9)])
+def test_packed_coarse_kernel_matches_plain_and_int8(dev, c, lc, nc):
+    """Packed K4 == its plain version == int8 K4 on the unpacked rows, exactly;
+    C = 24 takes the odd packed-word path."""
+    rng = np.random.default_rng(100 + c + lc)
+    flat = _coarse_db(rng, 203, lc, c, nc, "pm1").to(dev)
+    packed = coarse_scan.pack_coarse_nibbles(flat)
+    qs = torch.from_numpy(rng.choice([-1, 1], (16, nc, c)).astype(np.int8)).to(dev)
+    got = coarse_scan.coarse_scan_batch_packed_kernel(qs, packed, lc_true=lc)
+    want = coarse_scan.coarse_scan_batch_packed_ref(qs, packed, lc_true=lc)
+    int8 = coarse_scan.coarse_scan_batch_kernel(qs, flat, lc_true=lc)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(got, int8):
+        assert torch.equal(a, b)
+    assert torch.equal(coarse_scan.unpack_coarse_nibbles(packed)[:, :flat.shape[1]], flat)
+
+
+@pytest.mark.parametrize("t,w", [(1, 16), (37, 2688), (1000, 10368), (5, 0)])
+def test_row_sum_kernel_matches_plain(dev, t, w):
+    rng = np.random.default_rng(t + w)
+    db = torch.from_numpy(rng.integers(-128, 128, (t, w)).astype(np.int8)).to(dev)
+    got = probe.row_sum_kernel(db)
+    assert torch.equal(got, probe.row_sum_ref(db))
+    assert torch.equal(got, torch.sum(db, dim=1, dtype=torch.int32))
+
+
+def test_row_sum_kernel_rejects_unaligned_rows(dev):
+    with pytest.raises(ValueError, match="16-byte"):
+        probe.row_sum_kernel(torch.zeros((4, 24), dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError):
+        probe.row_sum_kernel(torch.zeros((4, 32), dtype=torch.int32, device=dev))
+
+
 def test_fine_kernel_matches_plain(dev):
     rng = np.random.default_rng(8)
     t, l, n, n_fine = 40, 700, 300, 45
@@ -200,15 +252,17 @@ def test_fine_kernel_matches_plain(dev):
     assert int(got[0][0, 0]) == 64 * n and int(got[1][0, 0]) == 200
 
 
-@pytest.mark.parametrize("preset", ["default", "catalog_scale"])
+@pytest.mark.parametrize("preset", ["default", "catalog_scale", "catalog_scale_pack4"])
 def test_two_stage_on_card_matches_cpu_and_counts_launches(dev, preset):
     cfg = (HpfwConfig(db_downsample=8) if preset == "default"
-           else HpfwConfig.catalog_scale(db_downsample=8))
+           else HpfwConfig.catalog_scale(db_downsample=8,
+                                         coarse_prefilter_pack4=preset.endswith("pack4")))
     rng = np.random.default_rng(5)
     t, l, n = 61, 400, 96
     prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
     db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32),
-                           [str(i) for i in range(t)], prints, np.full(t, l, np.int32))
+                           [str(i) for i in range(t)], prints, np.full(t, l, np.int32),
+                           device="cpu")
     qs = np.stack([prints[i, o:o + n] for i, o in ((3, 5), (40, 133), (60, 250))])
     on_cpu = TwoStageDB(db)
     _build.reset_launch_counts()
@@ -223,10 +277,35 @@ def test_two_stage_on_card_matches_cpu_and_counts_launches(dev, preset):
         assert a[0] == b[0]
         np.testing.assert_array_equal(a[1], b[1])
         np.testing.assert_array_equal(a[2], b[2])
-    used = {k for k in ("coarse_scan", "coarse_scan_batch", "coarse_rescan", "fine_rescan")
-            if _build.LAUNCHES[k]}
-    assert used == ({"coarse_scan", "coarse_scan_batch", "fine_rescan"} if preset == "default"
-                    else {"coarse_scan_batch", "coarse_rescan", "fine_rescan"})
+    used = {k for k in ("coarse_scan", "coarse_scan_batch", "coarse_scan_batch_packed",
+                        "coarse_rescan", "fine_rescan") if _build.LAUNCHES[k]}
+    assert used == {"default": {"coarse_scan", "coarse_scan_batch", "fine_rescan"},
+                    "catalog_scale": {"coarse_scan_batch", "coarse_rescan", "fine_rescan"},
+                    "catalog_scale_pack4": {"coarse_scan_batch_packed", "coarse_rescan",
+                                            "fine_rescan"}}[preset]
+
+
+def test_match_server_on_card_equals_match(dev):
+    """The server's dispatcher stream, pinned copies and events give
+    ts.match's answers, for lone queries and for batches that fill."""
+    cfg = HpfwConfig.catalog_scale(db_downsample=8, coarse_prefilter_pack4=True)
+    rng = np.random.default_rng(6)
+    t, l, n = 61, 400, 96
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32),
+                           [str(i) for i in range(t)], prints, np.full(t, l, np.int32),
+                           device=dev)
+    ts = TwoStageDB(db)
+    qs = [prints[i, o:o + n] for i, o in ((3, 5), (40, 133), (60, 250), (7, 0), (11, 77))]
+    want = [ts.match(q, pool=16) for q in qs]
+    with MatchServer(ts, n, max_batch=4, max_wait_ms=20.0, pool=16) as srv:
+        srv.warmup(qs[0])
+        alone = [srv.match(q) for q in qs]
+        together = [f.result(timeout=60) for f in [srv.submit(q) for q in qs * 3]]
+    for got, w in zip(alone + together, want + want * 3):
+        assert got[0] == w[0]
+        np.testing.assert_array_equal(got[1], w[1])
+        np.testing.assert_array_equal(got[2], w[2])
 
 
 def test_coarse_and_fine_wrappers_reject_bad_inputs(dev):

@@ -224,7 +224,8 @@ def test_track_axis_padded_to_whole_tiles(tmp_path):
      "prefilter_channels"),
     (lambda db: TwoStageDB(db, coarse_kind="sum", stride=16).match(
         np.zeros((16384, 2), np.uint32)), ValueError, "2\\^24"),
-    (lambda db: TwoStageDB(db, prefilter_pack4=True), NotImplementedError, "B5"),
+    (lambda db: TwoStageDB(db, prefilter_pack4=True, coarse_kind="sum"), ValueError,
+     "nibble"),
     (lambda db: TwoStageDB(db, mesh=object()), NotImplementedError, "A12"),
 ], ids=["overlong_query", "phases_divide", "prefilter_channels", "sum_bound",
         "pack4", "mesh"])
