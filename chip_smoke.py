@@ -6,7 +6,7 @@
 Phases, each printing its own line; any failure raises and exits non-zero:
   1. device check: a CUDA card, its name and power limit (nvidia-smi), and
      TF32 off for float32 products;
-  2. build the three CUDA kernels from hpfw_tpu_torch/csrc;
+  2. build the CUDA kernels from hpfw_tpu_torch/csrc (one nvcc a source);
   3. each kernel against its plain PyTorch version on the card, at main-path
      shapes of the default config;
   4. the slice (BASELINE config 1): a 100-track DB of 20 s synthetic tracks
@@ -14,14 +14,16 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      at the right offset, and an exact excerpt scoring 64*N;
   5. a dense scan of a planted 1,000 x 7,701-print catalog;
   6. every kernel launched during phase 4, by the launch counters;
-  7. times of each kernel and its plain version, the 16 x 240 s extraction
-     realtime factor, and the config-1 query latency;
+  7. times of each kernel and its plain version (K1 also beside torch.matmul
+     of its operands and its bound, at both shapes), the 16 x 240 s
+     extraction realtime factor, and the config-1 query latency;
   8. the catalog of BASELINE config 4 at benchmarks/config4_scale.py's own
      defaults: 100,000 random tracks x 60 s, 20 planted noisy 10 s queries;
 then, for each of HpfwConfig() (phase-aligned plants) and
 HpfwConfig.catalog_scale() (misphased plants), on a TwoStageDB on the card:
   9. K4 (csrc/coarse.cu) at its surfaces and K5 (csrc/fine.cu) against their
-     plain versions at the catalog's shapes, exactly equal;
+     plain versions at the catalog's shapes, exactly equal, and K4 on 1,024
+     rows of ~5,000 windows (31 pass-1 rows each), which it streams in chunks;
  10. the slice: TwoStageDB.match on each query and match_batch in batches of
      8, 8 and 4; every query ranks its planted track first at the (score,
      offset) of K3's dense scan of that track, and batched equals single;
@@ -75,6 +77,7 @@ CFG4_TRACKS, CFG4_SECONDS, CFG4_QUERY_SECONDS, CFG4_QUERIES = 100_000, 60, 10, 2
 CFG4_FLIP = 0.15
 CFG4_BATCHES = (8, 8, 4)
 KERNEL_ROWS = 8192          # K4 rows scanned, and pooled rows a query for the rescan
+LONG_ROWS, LONG_TRACKS = 1024, 31   # K4 on rows of 31 tracks' windows (~5,000)
 FINE_QUERIES, FINE_CANDIDATES = 8, 1024
 # Serving (benchmarks/config4_serve.py) and streaming (benchmarks/config3_pool.py).
 SERVE_LOADS = (100.0, 200.0, 400.0, 800.0)
@@ -418,18 +421,24 @@ def run(dev: torch.device) -> list[dict]:
 
     # ---- the bounds and library calls of the timed shapes (query_10s, config1_db) ----
     kmat = frontend.kernel_matrix(cfg, dev)
-    n_frames = q_frames.shape[0]
-    k1_bound = bound(4 * len(q_pcm) + nbytes(kmat) + 4 * n_frames * cfg.n_bins,
-                     X6_PASSES * 2 * n_frames * cfg.frame_len * kmat.shape[1], "bf16_tensor")
-    k1_lib = cuda_ms(lambda: torch.matmul(q_frames, kmat))
+    k1_bounds, k1_libs = {}, {}
+    for label, pcm, frames in (("query_10s", q_pcm, q_frames), ("track_240s", long_pcm, l_frames)):
+        n_frames = frames.shape[0]
+        k1_bounds[label] = bound(4 * len(pcm) + nbytes(kmat) + 4 * n_frames * cfg.n_bins,
+                                 X6_PASSES * 2 * n_frames * cfg.frame_len * kmat.shape[1],
+                                 "bf16_tensor")
+        k1_libs[label] = cuda_ms(lambda: torch.matmul(frames, kmat))
+    k1_bound, k1_lib = k1_bounds["query_10s"], k1_libs["query_10s"]
     m_rows = q_spec.shape[0] - cfg.context_w + 1
     k2_bound = bound(nbytes(q_spec, filt) + 8 * (m_rows - cfg.delta_lag),
                      X6_PASSES * 2 * m_rows * cfg.context_dim * cfg.n_filters, "bf16_tensor")
     valid = (db_l.to(torch.int64) - q_dev.shape[0]).clamp(min=0) + 1
     k3_bound = bound(nbytes(q_dev, db_p, db_l) + 8 * db_p.shape[0],
                      int(valid.sum()) * q_dev.shape[0] * 2 * WORD_OPS, "int32")
-    log(f"phase 7 library: torch.matmul of K1's query_10s operands {k1_lib:.4f} ms "
-        f"(TF32 off)")
+    for label in k1_bounds:
+        log(f"phase 7 K1 {label}: kernel {measured['K1 ' + label][0]:.4f} ms, library "
+            f"torch.matmul of its operands {k1_libs[label]:.4f} ms (TF32 off), bound "
+            f"{k1_bounds[label][0]:.4f} ms ({k1_bounds[label][1]})")
     log(f"phase 7 bounds: K1 query_10s {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 query_10s "
         f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), K3 config1_db {k3_bound[0]:.4f} ms "
         f"({k3_bound[1]})")
@@ -607,6 +616,17 @@ def run_catalog(dev: torch.device) -> list[dict]:
                 bound(pooled.numel() * ts.db_c.shape[1] + nbytes(q2, pooled) +
                       8 * q2.shape[1] * pooled.numel(),
                       2 * KERNEL_ROWS * n_off2 * q2.numel(), "int8_tensor"))
+            # Rows past the old shared-memory limit: LONG_TRACKS consecutive
+            # pass-1 rows as one row of ~5,000 windows, scanned in chunks.
+            long_rows = ts.db_c1[:LONG_ROWS * LONG_TRACKS].reshape(LONG_ROWS, -1)
+            lc_long = long_rows.shape[1] // ts.prefilter_channels
+            checks["coarse_scan_batch_long"] = (
+                f"{LONG_ROWS} rows x {lc_long} windows x {ts.prefilter_channels} channels, "
+                f"{q1.shape[0]} lanes",
+                lambda: coarse_scan.coarse_scan_batch_kernel(q1, long_rows, lc_true=lc_long),
+                lambda: coarse_scan.coarse_scan_batch_ref(q1, long_rows, lc_true=lc_long),
+                bound(nbytes(long_rows, q1) + 8 * q1.shape[0] * LONG_ROWS,
+                      2 * LONG_ROWS * (lc_long - q1.shape[1] + 1) * q1.numel(), "int8_tensor"))
         for kname, (shape, kern, plain, _) in checks.items():
             got, ref = kern(), plain()
             torch.cuda.synchronize()

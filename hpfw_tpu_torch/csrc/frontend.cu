@@ -3,172 +3,350 @@
 // Replaces hpfw_tpu/ops/pallas_frontend.py::_frontend_kernel (driven by
 // pallas_cqt_from_frames). Computes, for every frame f and bin b,
 //   spec[f, b] = log(log_eps + sqrt(re^2 + im^2)),
-//   re = sum_k frames[f, k] * K[k, b],  im = sum_k frames[f, k] * K[k, n_bins + b],
-// where K is the (frame_len, 2 * n_bins) float32 NDFT matrix [Kre | Kim].
+//   re = sum_k frames[f, k] * K[k, b],  im = sum_k frames[f, k] * K[k, bin_pad + b],
+// where K is the NDFT matrix in the reference's padded layout: the real bank
+// in columns [0, n_bins), the imaginary bank in [bin_pad, bin_pad + n_bins).
 //
-// Bound: compute. The product is ~2 * F * frame_len * 2 * n_bins FLOP
-// (1.6 GFLOP for a 10 s query at the default config, 41 GFLOP for a 240 s
-// track), against 4 * frame_len * 2 * n_bins bytes of K that stay in L2.
-// Design: a shared-memory-tiled float32 FFMA GEMM. Each thread owns the real
-// and the imaginary accumulators of the same 4 bins for 4 frames. Frames are
-// read straight from the PCM with row stride `hop` (a torch unfold view), so
-// the 16x-overlapping frame matrix is never written. The frame_len reduction
-// is cut into KSPLIT fixed chunks, one per grid z, so a 10 s query (415
-// frames, 28 output tiles) still puts 224 blocks on the 132 SMs; a second
-// kernel adds the KSPLIT partial sums in order and applies the magnitude and
-// log. No tensor cores: TF32 would break the bit contract, and
-// split-precision tensor-core products are later work.
+// Precision: the TPU kernel's scheme. Both operands are split into three
+// bf16 parts (h, m, l) that carry 24 mantissa bits, and the six products of
+// significance >= 2^-16 (hh, hm, mh, hl, mm, lh) run on the tensor cores
+// (wgmma m64n128k16 bf16 -> f32). K is split once on the host in float64
+// (ops/frontend.py::cqt_kernel_split) and stored transposed, (3, 2 * bin_pad,
+// frame_len) bf16; the frames are split as _split3 does, once a block. The
+// tensor cores add each product into the accumulator with truncated
+// alignment, so every 32-deep slice of the reduction is summed into its own
+// fragment, the small products first, and then added to the running sum with
+// a rounded f32 add (summed into one accumulator, a 240 s track's spectrum
+// misses the 1e-4 gate).
 //
-// Determinism: each partial is one fmaf chain over its chunk in order, and
-// the chunk bounds depend on frame_len alone, so every output is the same
-// sequence of operations whatever F, the tile or the block. The same PCM
-// window therefore gives the same spectrum row bit for bit wherever it sits
-// in the input, which keeps length bucketing and exact-excerpt matches exact.
+// Bound: compute, six bf16 products a float32 product: ~6 * 2 * F *
+// frame_len * 2 * n_bins operations (9.9 GFLOP for a 10 s query, 245 GFLOP
+// for a 240 s track) at 989 TFLOP/s; the 12.6 MB of split K stays in L2, and
+// each block of BM frames reads all of it once, so L2 traffic falls as BM
+// grows.
+// Design: a block owns BM = 64 * WGS frames (WGS warpgroups, each 64 frames)
+// and 64 bins, re and im columns both (N = 128 columns of K), so the
+// magnitude and log run on the sums with no second kernel. Each 32-deep
+// slice is twelve asynchronous wgmma (six products x two k16 steps) a
+// warpgroup, both operands read from shared memory in the no-swizzle
+// core-matrix layout. While they run, the block stages a later slice of K
+// with cp.async (a ring of STAGES) and splits the frames of the next slice,
+// loaded from the PCM (row stride `hop`, a torch unfold view) one slice
+// earlier still, into bf16 parts. A small grid (up to 16 tiles of 64
+// frames: one wave) takes one warpgroup a block; a larger one two, which
+// halves the L2 reads of K. The frame_len reduction is cut into KSPLIT
+// fixed chunks, one a block of a thread-block cluster of KSPLIT, so a 10 s
+// query (415 frames, 14 tiles) still puts 112 blocks on the card. The chunk
+// partials meet in distributed shared memory: rank z adds the KSPLIT partials
+// of its BM / KSPLIT rows of the tile in rank order and applies the
+// epilogue. No partial sums go to device memory.
+//
+// Determinism: every output is the same sequence of operations whatever F,
+// the tile or the block: the chunk bounds depend on frame_len alone, a
+// tensor-core product of one row does not depend on the other rows of its
+// tile, the chunk partials are added in a fixed order, and both block
+// shapes run a row's products in the same order. The same PCM window
+// therefore gives the same spectrum row bit for bit wherever it sits in the
+// input, which keeps length bucketing and exact-excerpt matches exact.
 
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 64;   // frames per block
-constexpr int BN = 32;   // bins per block (each bin has a re and an im column)
-constexpr int BK = 16;   // reduction slice staged in shared memory
-constexpr int TM = 4;    // frames per thread
-constexpr int TN = 4;    // bins per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
-constexpr int KSPLIT = 8;  // fixed chunks of the frame_len reduction
-constexpr int EPI_THREADS = 256;
+constexpr int KSPLIT = 8;           // fixed chunks of the reduction = cluster size
+constexpr int BINS = 64;            // bins a block; 2 * BINS columns of K
+constexpr int BN = 2 * BINS;
+constexpr int BK = 32;              // reduction slice: two k16 steps
+constexpr int STAGES = 3;           // slices of K in flight
+constexpr int P_LD = BN + 4;        // floats a row of the partial tile
+// No-swizzle K-major core-matrix layout of a (rows x BK) bf16 tile: element
+// (r, k) at (k / 8) * 128 + (r / 8) * GROUP + (r % 8) * 16 + (k % 8) * 2
+// bytes; a k16 step's operand starts 256 bytes on.
+constexpr int GROUP = BK / 8 * 128;         // bytes an 8-row group
+constexpr int B_PART = BN / 8 * GROUP;      // bytes of one part of a K slice
+constexpr int B_SLOT = 3 * B_PART;
 
-// Partial sums over chunk blockIdx.z: partials[z, f, b] = re, [z, f, n_bins + b] = im.
-__global__ void __launch_bounds__(THREADS)
-cqt_partial_kernel(const float* __restrict__ frames, long long row_stride,
-                   int n_frames, int frame_len, const float* __restrict__ kmat,
-                   int n_bins, int chunk, float* __restrict__ partials) {
-  __shared__ float As[BK][BM + 1];  // +1 spreads the transposing stores over banks
-  __shared__ float Bre[BK][BN];
-  __shared__ float Bim[BK][BN];
+template <int WGS>
+struct Shape {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int A_PART = BM / 8 * GROUP;      // bytes of one part of a frame slice
+  static constexpr int A_BUF = 3 * A_PART;
+  static constexpr int F4 = BM * BK / 4 / THREADS;   // float4 of a frame slice a thread
+  static constexpr size_t SMEM_BYTES = STAGES * B_SLOT + 2 * A_BUF;
+  static_assert(BM * P_LD * 4 <= SMEM_BYTES, "the partial tile reuses the buffers");
+  static_assert(BM % KSPLIT == 0 && F4 * THREADS * 4 == BM * BK, "whole rows a rank");
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int f0 = blockIdx.x * BM;
-  const int b0 = blockIdx.y * BN;
-  const long long kcols = 2LL * n_bins;
-  const int kbeg = blockIdx.z * chunk;
-  const int kend = min(kbeg + chunk, frame_len);
-
-  float re[TM][TN];
-  float im[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      re[i][j] = 0.f;
-      im[i][j] = 0.f;
-    }
-  }
-
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    // Consecutive threads read consecutive samples of one frame.
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int m = i / BK;
-      const int k = i % BK;
-      const int f = f0 + m;
-      As[k][m] = (f < n_frames && k0 + k < kend)
-                     ? frames[(long long)f * row_stride + k0 + k]
-                     : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int k = i / BN;
-      const int n = i % BN;
-      const int b = b0 + n;
-      const bool ok = b < n_bins && k0 + k < kend;
-      const long long row = (long long)(k0 + k) * kcols;
-      Bre[k][n] = ok ? kmat[row + b] : 0.f;
-      Bim[k][n] = ok ? kmat[row + n_bins + b] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], br[TN], bi[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        br[j] = Bre[k][tx * TN + j];
-        bi[j] = Bim[k][tx * TN + j];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          re[i][j] = fmaf(a[i], br[j], re[i][j]);
-          im[i][j] = fmaf(a[i], bi[j], im[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float* part = partials + (long long)blockIdx.z * n_frames * kcols;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int f = f0 + ty * TM + i;
-    if (f >= n_frames) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int b = b0 + tx * TN + j;
-      if (b < n_bins) {
-        part[(long long)f * kcols + b] = re[i][j];
-        part[(long long)f * kcols + n_bins + b] = im[i][j];
-      }
-    }
-  }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-// out[f, b] = log(log_eps + |sum over z of the partials|), z in order.
-__global__ void __launch_bounds__(EPI_THREADS)
-cqt_epilogue_kernel(const float* __restrict__ partials, int n_frames, int n_bins,
-                    float log_eps, float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * EPI_THREADS + threadIdx.x;
-  if (i >= (long long)n_frames * n_bins) return;
-  const long long f = i / n_bins;
-  const int b = (int)(i % n_bins);
-  const long long plane = (long long)n_frames * 2 * n_bins;
-  const float* p = partials + f * 2 * n_bins + b;
-  float re = 0.f, im = 0.f;
+// 16 bytes from global to shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared-memory writes of this thread (st.shared, cp.async) made visible to
+// the tensor cores' reads (the async proxy); a barrier then orders them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Descriptor of a no-swizzle K-major operand starting at p: the next core
+// matrix along K 128 bytes on, along the rows GROUP bytes on.
+__device__ __forceinline__ unsigned long long wgmma_desc(const void* p) {
+  return (unsigned long long)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((unsigned long long)(128 >> 4) << 16) | ((unsigned long long)(GROUP >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of d across an asynchronous
+// wgmma's issue or wait.
+__device__ __forceinline__ void fence_operand(float (&d)[64]) {
 #pragma unroll
-  for (int z = 0; z < KSPLIT; ++z) {
-    re += p[z * plane];
-    im += p[z * plane + n_bins];
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], unsigned long long da,
+                                                 unsigned long long db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Two floats -> their (h, m, l) bf16 parts, each pair packed low element first.
+__device__ __forceinline__ void split3(float2 x, unsigned& h, unsigned& m, unsigned& l) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x.x), h1 = __float2bfloat16_rn(x.y);
+  const float r0 = x.x - __bfloat162float(h0), r1 = x.y - __bfloat162float(h1);
+  const __nv_bfloat16 m0 = __float2bfloat16_rn(r0), m1 = __float2bfloat16_rn(r1);
+  const __nv_bfloat16 l0 = __float2bfloat16_rn(r0 - __bfloat162float(m0));
+  const __nv_bfloat16 l1 = __float2bfloat16_rn(r1 - __bfloat162float(m1));
+  h = (unsigned)__bfloat16_as_ushort(h0) | ((unsigned)__bfloat16_as_ushort(h1) << 16);
+  m = (unsigned)__bfloat16_as_ushort(m0) | ((unsigned)__bfloat16_as_ushort(m1) << 16);
+  l = (unsigned)__bfloat16_as_ushort(l0) | ((unsigned)__bfloat16_as_ushort(l1) << 16);
+}
+
+template <int WGS>
+__global__ void __cluster_dims__(KSPLIT, 1, 1) __launch_bounds__(128 * WGS, 1)
+cqt_kernel(const float* __restrict__ frames, long long row_stride, int n_frames,
+           int frame_len, const __nv_bfloat16* __restrict__ ksplit, int n_bins, int bin_pad,
+           int chunk, float log_eps, float* __restrict__ out) {
+  using S = Shape<WGS>;
+  constexpr int BM = S::BM, THREADS = S::THREADS, F4 = S::F4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
+  const int f0 = blockIdx.y * BM;
+  const int b0 = blockIdx.z * BINS;
+  const int kbeg = blockIdx.x * chunk;   // blockIdx.x is the rank in the cluster
+  const int kend = min(kbeg + chunk, frame_len);
+  const int n_steps = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const long long k_plane = 2LL * bin_pad * frame_len;
+  unsigned char* const a_buf = smem + STAGES * B_SLOT;
+
+  // Stage slice `step` of K into slot step % STAGES: for each part, BN rows
+  // (the re then the im columns of the block's bins) of BK values.
+  auto stage = [&](int step) {
+    const int k0 = kbeg + step * BK;
+    unsigned char* dst = smem + (step % STAGES) * B_SLOT;
+    for (int i = tid; i < 3 * BN * (BK / 8); i += THREADS) {
+      const int part = i / (BN * (BK / 8)), rem = i % (BN * (BK / 8));
+      const int n = rem / (BK / 8), kg = rem % (BK / 8);
+      const int gn = n < BINS ? b0 + n : bin_pad + b0 + (n - BINS);
+      const int k = k0 + 8 * kg;
+      const bool ok = k < kend;
+      cp_async16(dst + part * B_PART + kg * 128 + (n / 8) * GROUP + (n % 8) * 16,
+                 ok ? ksplit + part * k_plane + (long long)gn * frame_len + k : ksplit, ok);
+    }
+  };
+
+  // This thread's float4s of the frames of slice `step` (zero past F and
+  // past the chunk), and their split into a_buf's buffer step % 2.
+  float4 fr[F4];
+  auto load = [&](int step) {
+    const int k0 = kbeg + step * BK;
+#pragma unroll
+    for (int r = 0; r < F4; ++r) {
+      const int q = tid + r * THREADS, row = q / (BK / 4), k = k0 + 4 * (q % (BK / 4));
+      const int f = f0 + row;
+      fr[r] = f < n_frames && k < kend
+                  ? __ldg(reinterpret_cast<const float4*>(frames + (long long)f * row_stride + k))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto split = [&](int step) {
+    unsigned char* dst = a_buf + (step % 2) * S::A_BUF;
+#pragma unroll
+    for (int r = 0; r < F4; ++r) {
+      const int q = tid + r * THREADS, row = q / (BK / 4), k = 4 * (q % (BK / 4));
+      unsigned h0, m0, l0, h1, m1, l1;
+      split3(make_float2(fr[r].x, fr[r].y), h0, m0, l0);
+      split3(make_float2(fr[r].z, fr[r].w), h1, m1, l1);
+      unsigned char* d = dst + (k / 8) * 128 + (row / 8) * GROUP + (row % 8) * 16 + (k % 8) * 2;
+      *reinterpret_cast<uint2*>(d) = make_uint2(h0, h1);
+      *reinterpret_cast<uint2*>(d + S::A_PART) = make_uint2(m0, m1);
+      *reinterpret_cast<uint2*>(d + 2 * S::A_PART) = make_uint2(l0, l1);
+    }
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_steps) stage(s);
+    cp_async_commit();
   }
-  out[i] = logf(log_eps + sqrtf(re * re + im * im));
+  if (n_steps > 0) {
+    load(0);
+    split(0);
+  }
+  if (n_steps > 1) load(1);
+  cp_async_wait<STAGES - 2>();
+  fence_async_shared();
+  __syncthreads();
+
+  // Slice step: twelve wgmma into `part` (the first overwrites it), small
+  // products first; while they run, stage slice step + STAGES - 1 of K,
+  // split slice step + 1's frames and load slice step + 2's.
+  for (int step = 0; step < n_steps; ++step) {
+    const unsigned char* a = a_buf + (step % 2) * S::A_BUF + wg * 8 * GROUP;
+    const unsigned char* b = smem + (step % STAGES) * B_SLOT;
+    wgmma_fence();
+    fence_operand(part);
+#pragma unroll
+    for (int kh = 0; kh < BK / 16; ++kh) {
+      const unsigned long long ah = wgmma_desc(a + kh * 256), bh = wgmma_desc(b + kh * 256);
+      const unsigned long long am = ah + (S::A_PART >> 4), al = ah + (2 * S::A_PART >> 4);
+      const unsigned long long bm = bh + (B_PART >> 4), bl = bh + (2 * B_PART >> 4);
+      wgmma_m64n128k16(part, al, bh, kh);
+      wgmma_m64n128k16(part, am, bm, 1);
+      wgmma_m64n128k16(part, ah, bl, 1);
+      wgmma_m64n128k16(part, am, bh, 1);
+      wgmma_m64n128k16(part, ah, bm, 1);
+      wgmma_m64n128k16(part, ah, bh, 1);
+    }
+    wgmma_commit();
+    if (step + STAGES - 1 < n_steps) stage(step + STAGES - 1);
+    cp_async_commit();
+    if (step + 1 < n_steps) {
+      split(step + 1);
+      if (step + 2 < n_steps) load(step + 2);
+    }
+    wgmma_wait_all();
+    fence_operand(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    cp_async_wait<STAGES - 2>();
+    fence_async_shared();
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // This chunk's partial tile into shared memory: column c < BINS is bin
+  // b0 + c's re, column BINS + c its im. Accumulator i of the thread is row
+  // 16 * warp + lane / 4 (+ 8 for i % 4 >= 2) of its warpgroup's 64, column
+  // 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+  float* Ps = reinterpret_cast<float*>(smem);
+  const int row0 = 64 * wg + 16 * warp + lane / 4;
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(Ps + row0 * P_LD + col) = make_float2(acc[i], acc[i + 1]);
+    *reinterpret_cast<float2*>(Ps + (row0 + 8) * P_LD + col) = make_float2(acc[i + 2], acc[i + 3]);
+  }
+  cluster.sync();
+
+  // Rank z adds the KSPLIT partials of rows [z * RROWS, (z + 1) * RROWS) in
+  // rank order, then applies the magnitude and log.
+  constexpr int RROWS = BM / KSPLIT;
+  const int rank = (int)cluster.block_rank();
+  for (int p = tid; p < RROWS * BINS; p += THREADS) {
+    const int row = rank * RROWS + p / BINS, b = p % BINS;
+    float re = 0.f, im = 0.f;
+#pragma unroll
+    for (int r = 0; r < KSPLIT; ++r) {
+      const float* src = cluster.map_shared_rank(Ps, r) + row * P_LD;
+      re += src[b];
+      im += src[BINS + b];
+    }
+    const int f = f0 + row;
+    if (f < n_frames && b0 + b < n_bins)
+      out[(long long)f * n_bins + b0 + b] = logf(log_eps + sqrtf(re * re + im * im));
+  }
+  cluster.sync();   // no block leaves while another reads its partials
+}
+
+template <int WGS>
+cudaError_t launch(cudaStream_t stream, const float* frames, long long row_stride,
+                   int n_frames, int frame_len, const void* ksplit, int n_bins, int bin_pad,
+                   int chunk, float log_eps, float* out) {
+  using S = Shape<WGS>;
+  const dim3 grid(KSPLIT, (n_frames + S::BM - 1) / S::BM, bin_pad / BINS);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(cqt_kernel<WGS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)S::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  cqt_kernel<WGS><<<grid, S::THREADS, S::SMEM_BYTES, stream>>>(
+      frames, row_stride, n_frames, frame_len, reinterpret_cast<const __nv_bfloat16*>(ksplit),
+      n_bins, bin_pad, chunk, log_eps, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The number of partial sums hpfw_cqt needs room for: its `partials`
-// argument holds hpfw_cqt_splits() * n_frames * 2 * n_bins floats.
-extern "C" int hpfw_cqt_splits() { return KSPLIT; }
-
-// frames: row f starts at frames + f * row_stride, frame_len floats each.
-// kmat: (frame_len, 2 * n_bins) row-major. partials: scratch, see above.
-// out: (n_frames, n_bins).
+// frames: row f starts at frames + f * row_stride, frame_len floats each;
+// frames and row_stride 16-byte aligned. ksplit: (3, 2 * bin_pad, frame_len)
+// bf16, the h, m, l parts of the transposed padded NDFT matrix, 16-byte
+// aligned. out: (n_frames, n_bins) float32. One launch.
 extern "C" int hpfw_cqt(const float* frames, long long row_stride, int n_frames,
-                        int frame_len, const float* kmat, int n_bins, float log_eps,
-                        float* partials, float* out, cudaStream_t stream) {
-  if (n_frames <= 0 || frame_len <= 0 || n_bins <= 0 || row_stride < 0)
+                        int frame_len, const void* ksplit, int n_bins, int bin_pad,
+                        float log_eps, float* out, cudaStream_t stream) {
+  if (n_frames <= 0 || frame_len <= 0 || frame_len % 8 || n_bins <= 0 || bin_pad % BINS ||
+      n_bins > bin_pad || row_stride < 0 || row_stride % 4 ||
+      (reinterpret_cast<size_t>(frames) | reinterpret_cast<size_t>(ksplit)) % 16)
     return (int)cudaErrorInvalidValue;
   const int chunk = ((frame_len + KSPLIT - 1) / KSPLIT + BK - 1) / BK * BK;
-  const dim3 grid((n_frames + BM - 1) / BM, (n_bins + BN - 1) / BN, KSPLIT);
-  cqt_partial_kernel<<<grid, THREADS, 0, stream>>>(frames, row_stride, n_frames,
-                                                   frame_len, kmat, n_bins, chunk,
-                                                   partials);
-  const long long n_out = (long long)n_frames * n_bins;
-  cqt_epilogue_kernel<<<(unsigned)((n_out + EPI_THREADS - 1) / EPI_THREADS),
-                        EPI_THREADS, 0, stream>>>(partials, n_frames, n_bins,
-                                                  log_eps, out);
-  return (int)cudaGetLastError();
+  // Up to 16 tiles of 64 frames (one wave of clusters) take one warpgroup a
+  // block; more take two. The results are equal.
+  if ((n_frames + 63) / 64 * (bin_pad / BINS) <= 16)
+    return (int)launch<1>(stream, frames, row_stride, n_frames, frame_len, ksplit, n_bins,
+                          bin_pad, chunk, log_eps, out);
+  return (int)launch<2>(stream, frames, row_stride, n_frames, frame_len, ksplit, n_bins,
+                        bin_pad, chunk, log_eps, out);
 }
 
 // The message for a cudaError_t code returned by any hpfw_* entry point.

@@ -104,10 +104,7 @@ def library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # Every pointer and the stream are c_void_p: an undeclared argument is
     # passed as a 32-bit int and a device address would be cut.
-    lib.hpfw_cqt_splits.argtypes = []
-    lib.hpfw_cqt_splits.restype = i32
-    lib.hpfw_cqt.argtypes = [ptr, i64, i32, i32, ptr, i32, ctypes.c_float, ptr, ptr,
-                             ptr]
+    lib.hpfw_cqt.argtypes = [ptr, i64, i32, i32, ptr, i32, i32, ctypes.c_float, ptr, ptr]
     lib.hpfw_fingerprint.argtypes = [ptr, i32, i32, ptr, i32, i32, i32, i32, i32,
                                      ptr, ptr]
     lib.hpfw_score_tracks.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr]

@@ -31,14 +31,16 @@ import torch
 from . import _build
 from .coarse import correlation_blocks
 
-# K4 launch geometry: a block stages a chunk of query lanes in at most
-# QUERY_SMEM bytes, and enough rows (at most 8, in at most ROW_SMEM bytes)
-# for PAIRS_PER_BLOCK (row, lane) pairs, within the 227 KB a block may use.
-# Windows are staged as 16-byte chunks, ceil(C/16) of them at an odd stride.
-ROWS_PER_BLOCK = 8
-PAIRS_PER_BLOCK = 16
-ROW_SMEM = 104 * 1024
-QUERY_SMEM = 32 * 1024
+# K4 launch geometry (csrc/coarse.cu): a block of SCAN_WARPS warps stages 8
+# query lanes (16 when there are more than 8) and scans ROWS_PER_BLOCK rows,
+# each warp its own, streaming a row through shared memory a chunk of
+# offsets at a time, two chunks deep. Chunks are sized so that a block takes at most SCAN_SMEM bytes
+# (two blocks an SM); a query too long for even one chunk of one
+# group of offsets within the MAX_SMEM a block may use raises.
+SCAN_WARPS = 4
+OFFSET_GROUP = 48            # offsets a warp scans at a time: 3 tiles of 16
+ROWS_PER_BLOCK = 16
+SCAN_SMEM = 110 * 1024
 MAX_SMEM = 227 * 1024
 MAX_GRID_Y = 65535
 # Rows a chunk of pack_coarse_nibbles packs at once.
@@ -106,6 +108,41 @@ def _check_off(nc: int, lc_true: int) -> None:
     if lc_true - nc + 1 < 1:
         raise ValueError(f"query of {nc} coarse windows is longer than the "
                          f"{lc_true} windows of the DB rows")
+
+
+def scan_geometry(n_win: int, nc: int, c: int, lanes: int,
+                  packed: bool = False) -> tuple[int, int]:
+    """K4's (chunk_off, shared-memory bytes) for rows of n_win windows, a
+    query of nc windows of c channels and `lanes` lanes a group. A block
+    stages 8 lanes (16 for more than 8) at nc * Cp + 16 bytes each (Cp = 32
+    or 64, c rounded up); each warp a chunk of chunk_off offsets (a whole
+    number of OFFSET_GROUP-offset groups) from cw = chunk_off + nc - 1
+    windows at Cp + 16 bytes, two buffers deep for int8 rows, or one buffer
+    and two of cw * c / 2 packed bytes (rounded up to 16) for packed rows.
+    chunk_off covers the whole row where that fits in SCAN_SMEM."""
+    cp = 32 if c <= 32 else 64
+    q_bytes = (8 if lanes <= 8 else 16) * (nc * cp + 16)
+
+    def smem(chunk_off: int) -> int:
+        cw = chunk_off + nc - 1
+        rows = cw * (cp + 16) + (2 * -(-cw * c // 2 // 16) * 16 if packed
+                                 else cw * (cp + 16))
+        return q_bytes + SCAN_WARPS * rows
+
+    chunk_off = OFFSET_GROUP * -(-(n_win - nc + 1) // OFFSET_GROUP)
+    while chunk_off > OFFSET_GROUP and smem(chunk_off) > SCAN_SMEM:
+        chunk_off -= OFFSET_GROUP
+    if smem(chunk_off) > MAX_SMEM:
+        raise ValueError(f"a query of {nc} coarse windows x {c} channels needs "
+                         f"{smem(chunk_off)} bytes of K4's shared memory; a block has "
+                         f"{MAX_SMEM}")
+    return chunk_off, smem(chunk_off)
+
+
+def row_chunks(n_off: int, chunk_off: int) -> list[tuple[int, int]]:
+    """The chunks K4 scans a row in: offsets [o0, o1), from the windows [o0,
+    o1 + nc - 1), so that consecutive chunks' windows overlap by nc - 1."""
+    return [(o0, min(o0 + chunk_off, n_off)) for o0 in range(0, n_off, chunk_off)]
 
 
 def coarse_scan_batch_ref(query_cs: torch.Tensor, db_flat: torch.Tensor, *,
@@ -182,17 +219,8 @@ def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
         if tuple(rows.shape) != (n_groups, n_rows):
             raise ValueError(f"rows must be ({n_groups}, {n_rows}), got {tuple(rows.shape)}")
     lanes = total // n_groups
-    chunks = -(-c // 16)
-    row_bytes = lc_true * (chunks | 1) * 16
-    q_bytes = nc * chunks * 16
-    lane_chunk = max(1, min(lanes, QUERY_SMEM // max(q_bytes, 1)))
-    rows_per_block = max(1, min(ROWS_PER_BLOCK, -(-PAIRS_PER_BLOCK // lane_chunk),
-                                ROW_SMEM // row_bytes))
-    smem = rows_per_block * row_bytes + lane_chunk * q_bytes
-    if smem > MAX_SMEM:
-        raise ValueError(f"coarse rows of {lc_true} windows x {c} channels need "
-                         f"{smem} bytes of shared memory; the kernel has {MAX_SMEM}")
-    if n_groups * -(-lanes // lane_chunk) > MAX_GRID_Y:
+    chunk_off, _ = scan_geometry(lc_true, nc, c, lanes, packed)
+    if n_groups * -(-lanes // (8 if lanes <= 8 else 16)) > MAX_GRID_Y:
         raise ValueError(f"too many query lanes for one launch ({total})")
     best = torch.empty((total, n_rows), dtype=torch.int32, device=db_flat.device)
     first = torch.empty_like(best)
@@ -201,7 +229,7 @@ def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
                       query_cs.data_ptr(), n_groups, lanes, nc, c,
                       db_flat.data_ptr(), lcw, lc_true,
                       rows.data_ptr() if rows is not None else None, n_rows,
-                      rows_per_block, lane_chunk, int(packed), best.data_ptr(),
+                      ROWS_PER_BLOCK, chunk_off, int(packed), best.data_ptr(),
                       first.data_ptr())
     return best, first
 

@@ -173,3 +173,70 @@ def test_scan_rejects_query_longer_than_rows():
     flat = coarse_scan.flatten_coarse(torch.ones((2, 5, 64), dtype=torch.int8))
     with pytest.raises(ValueError, match="longer than"):
         coarse_scan.coarse_scan(q, flat, lc_true=5)
+
+
+def _chunked_scan(qs, flat, lc_true, lanes, packed):
+    """Plain emulation of K4's streaming of long rows: each row scanned chunk
+    by chunk over the windows [o0, o1 + Nc - 1) of row_chunks, each chunk's
+    best as the 64-bit key corr * 2^32 + 2^32 - 1 - offset, the keys merged
+    by max across chunks."""
+    g, nc, c = qs.shape
+    chunk_off, smem = coarse_scan.scan_geometry(lc_true, nc, c, lanes, packed)
+    assert chunk_off % coarse_scan.OFFSET_GROUP == 0 and smem <= coarse_scan.MAX_SMEM
+    chunks = coarse_scan.row_chunks(lc_true - nc + 1, chunk_off)
+    assert chunks[0][0] == 0 and chunks[-1][1] == lc_true - nc + 1
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    db_c = flat.view(flat.shape[0], -1, c)
+    key = None
+    for o0, o1 in chunks:
+        corr = coarse.coarse_correlation_batch(qs, db_c[:, o0:o1 + nc - 1]).to(torch.int64)
+        assert corr.shape[2] == o1 - o0
+        o = torch.arange(o0, o1, dtype=torch.int64)
+        k = (corr * 2 ** 32 + (2 ** 32 - 1 - o)).max(dim=2).values
+        key = k if key is None else torch.maximum(key, k)
+    return (key >> 32).to(torch.int32), (2 ** 32 - 1 - (key & (2 ** 32 - 1))).to(torch.int32)
+
+
+@pytest.mark.parametrize("lc,c,lanes,packed", [
+    (3000, 64, 2, False), (5000, 32, 16, False), (3100, 24, 3, False), (3000, 64, 9, False),
+    (5000, 32, 2, True)])
+def test_long_row_chunks_merge_to_the_whole_scan(lc, c, lanes, packed):
+    """Rows of 3,000+ windows (past the old shared-memory limit) streamed in
+    K4's chunks: the merged keys equal coarse_scan_batch_ref and the
+    reference's coarse_correlation_batch, with ties and peaks placed across
+    and inside the overlap of two chunks, and an all-negative row."""
+    rng = np.random.default_rng(lc + c + lanes)
+    t, nc = 6, 26
+    chunk_off, _ = coarse_scan.scan_geometry(lc, nc, c, lanes, packed)
+    assert lc - nc + 1 > 2 * chunk_off                       # three chunks or more
+    qs = rng.choice([-1, 1], (lanes, nc, c)).astype(np.int8)
+    d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
+    b = chunk_off                                             # the first chunk boundary
+    d[0, b - 20:b - 20 + nc] = qs[0]                          # tie: in chunk 0, windows in both ...
+    d[0, b + 10:b + 10 + nc] = qs[0]                          # ... and in chunk 1
+    d[1, b - 1:b - 1 + nc] = qs[0]                            # peak: last offset of chunk 0
+    d[2, b:b + nc] = qs[-1]                                   # peak: first offset of chunk 1
+    d[3] = -qs[0, 0]                                          # every offset negative for lane 0
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d))
+    q = torch.from_numpy(qs)
+    got = _chunked_scan(q, flat, lc, lanes, packed)
+    want = coarse_scan.coarse_scan_batch_ref(q, flat, lc_true=lc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    corr = np.asarray(jax_coarse.coarse_correlation_batch(jnp.asarray(qs), jnp.asarray(d)))
+    np.testing.assert_array_equal(got[0].numpy(), corr.max(axis=-1))
+    np.testing.assert_array_equal(got[1].numpy(), corr.argmax(axis=-1))
+    assert int(got[0][0, 0]) == nc * c and int(got[1][0, 0]) == b - 20
+    assert int(got[1][0, 1]) == b - 1 and int(got[1][lanes - 1, 2]) == b
+    assert int(got[0][0, 3]) < 0
+
+
+def test_rows_of_common_length_are_one_chunk():
+    """At config-4 shapes (161 windows, 26-window queries) a row is one or two
+    chunks on every surface within SCAN_SMEM; pass 1 (32 channels), int8 or
+    packed, and the packed 64-channel rows are one."""
+    for c, lanes, packed in ((32, 16, False), (64, 16, False), (64, 8, False), (64, 1, False),
+                             (32, 16, True), (32, 2, True), (64, 8, True)):
+        chunk_off, smem = coarse_scan.scan_geometry(161, 26, c, lanes, packed)
+        assert smem <= coarse_scan.SCAN_SMEM
+        n = len(coarse_scan.row_chunks(136, chunk_off))
+        assert n == 1 if c == 32 or packed else n <= 2

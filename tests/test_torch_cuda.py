@@ -58,6 +58,31 @@ def test_cqt_kernel_matches_plain(dev, cfg_kw, seconds):
         assert torch.equal(frontend.cqt_kernel(frames.contiguous(), cfg), got)
 
 
+@pytest.mark.parametrize("n_frames", [1, 63, 64, 65, 415, 10320])
+def test_cqt_kernel_frame_counts(dev, n_frames):
+    """K1 at the default config for F frames (one tile, either side of a
+    64-frame tile, a 10 s query, a 240 s track): within 1e-4 of the plain
+    version; a contiguous copy, an unaligned view, the view without its first
+    frame and (for the track) its first 415 frames, launched as a small grid,
+    give the same bits row for row."""
+    cfg = HpfwConfig()
+    n = cfg.frame_len + (n_frames - 1) * cfg.hop
+    pcm = torch.from_numpy(synth.synth_track(11, n / cfg.sample_rate + 0.01, cfg)[:n + 1]).to(dev)
+    frames = frontend.frame_signal(pcm[:n], cfg)
+    assert frames.shape[0] == n_frames
+    got = frontend.cqt_kernel(frames, cfg)
+    torch.testing.assert_close(got, frontend.cqt_from_frames_ref(frames, cfg), rtol=0, atol=1e-4)
+    assert torch.equal(frontend.cqt_kernel(frames.contiguous(), cfg), got)
+    shifted = frontend.frame_signal(pcm[1:], cfg)             # 4-byte aligned only
+    assert shifted.data_ptr() % 16 and shifted.shape[0] == n_frames
+    assert torch.equal(frontend.cqt_kernel(shifted, cfg),
+                       frontend.cqt_kernel(shifted.contiguous(), cfg))
+    if n_frames > 1:
+        assert torch.equal(frontend.cqt_kernel(frames[1:], cfg), got[1:])
+    if n_frames > 1024:          # a large grid's slices against a small grid's
+        assert torch.equal(frontend.cqt_kernel(frames[:415], cfg), got[:415])
+
+
 @pytest.mark.parametrize("bit_order", ["lsb0", "msb0"])
 @pytest.mark.parametrize("tie_break", ["gt", "ge"])
 def test_encoder_kernel_matches_plain(dev, bit_order, tie_break):
@@ -213,6 +238,54 @@ def test_packed_coarse_kernel_matches_plain_and_int8(dev, c, lc, nc):
     for a, b in zip(got, int8):
         assert torch.equal(a, b)
     assert torch.equal(coarse_scan.unpack_coarse_nibbles(packed)[:, :flat.shape[1]], flat)
+
+
+@pytest.mark.parametrize("lc,c,nc,lanes", [
+    (3000, 64, 26, 1), (5000, 32, 26, 16), (3000, 8, 7, 2), (3002, 24, 26, 3),
+    (3000, 40, 10, 9), (5000, 56, 26, 17), (3000, 64, 26, 16)])
+def test_coarse_kernel_long_rows(dev, lc, c, nc, lanes):
+    """K4 on rows past the old shared-memory limit (3,000 and 5,000 windows,
+    several chunks each), C = 8..64, n_off not a multiple of 16, 1-17 lanes:
+    every surface equal to its plain version, packed equal to int8, with
+    ties inside a row and across a chunk boundary and all-negative rows."""
+    rng = np.random.default_rng(lc + c + lanes)
+    t = 40
+    chunk_off, _ = coarse_scan.scan_geometry(lc, nc, c, lanes)
+    b = chunk_off                                             # the first chunk boundary
+    assert (lc - nc + 1) % 16 and lc - nc + 1 > 2 * chunk_off
+    qs = rng.choice([-1, 1], (lanes, nc, c)).astype(np.int8)
+    qs[0] = 1
+    d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
+    for i, ln in enumerate(rng.integers(lc // 2, lc + 1, size=t)):
+        d[i, ln:] = 0
+    d[:6, :] = rng.choice([-1, 1], (6, lc, c))                # full-length rows
+    d[0, b - 20:b - 20 + nc] = qs[-1]                         # tie across the boundary
+    d[0, b + 10:b + 10 + nc] = qs[-1]
+    d[1, 100:100 + nc] = qs[-1]                               # tie inside a chunk
+    d[1, 140:140 + nc] = qs[-1]
+    d[2, b - 1:b - 1 + nc] = qs[-1]                           # last offset of chunk 0
+    d[3] = -1                                                 # all negative for lane 0
+    d[4] = -1                                                 # ... but for a zero tail:
+    d[4, lc - nc - 5:] = 0                                    # 0 first at a padded offset
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d)).to(dev)
+    packed = coarse_scan.pack_coarse_nibbles(flat)
+    q = torch.from_numpy(qs).to(dev)
+    got = coarse_scan.coarse_scan_batch_kernel(q, flat, lc_true=lc)
+    want = coarse_scan.coarse_scan_batch_ref(q, flat, lc_true=lc)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1][lanes - 1, 0]) == b - 20 and int(got[1][lanes - 1, 1]) == 100
+    assert int(got[1][lanes - 1, 2]) == b - 1
+    assert int(got[0][0, 3]) == -nc * c and int(got[1][0, 3]) == 0
+    assert int(got[0][0, 4]) == 0 and int(got[1][0, 4]) == lc - nc - 5
+    got_p = coarse_scan.coarse_scan_batch_packed_kernel(q, packed, lc_true=lc)
+    assert torch.equal(got_p[0], got[0]) and torch.equal(got_p[1], got[1])
+    one = coarse_scan.coarse_scan_kernel(q[0], flat, lc_true=lc)
+    assert torch.equal(one[0], got[0][0]) and torch.equal(one[1], got[1][0])
+    rows = torch.from_numpy(np.sort(rng.integers(0, t, (2, 24)), axis=1).astype(np.int32)).to(dev)
+    q4 = q[None].expand(2, -1, -1, -1).contiguous()
+    got_r = coarse_scan.coarse_rescan_kernel(q4, flat, rows, lc_true=lc)
+    want_r = coarse_scan.coarse_rescan_ref(q4, flat, rows, lc_true=lc)
+    assert torch.equal(got_r[0], want_r[0]) and torch.equal(got_r[1], want_r[1])
 
 
 @pytest.mark.parametrize("t,w", [(1, 16), (37, 2688), (1000, 10368), (5, 0)])
