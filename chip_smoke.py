@@ -8,15 +8,17 @@ Phases, each printing its own line; any failure raises and exits non-zero:
      TF32 off for float32 products;
   2. build the CUDA kernels from hpfw_tpu_torch/csrc (one nvcc a source);
   3. each kernel against its plain PyTorch version on the card, at main-path
-     shapes of the default config;
+     shapes of the default config, and K2 on 67-frame windows (the streaming
+     launch, 32 prints) cut from the 240 s spectrum, equal to the whole-track
+     prints bit for bit;
   4. the slice (BASELINE config 1): a 100-track DB of 20 s synthetic tracks
      built through api.build_db on the card, a noisy 10 s query identified
      at the right offset, and an exact excerpt scoring 64*N;
   5. a dense scan of a planted 1,000 x 7,701-print catalog;
   6. every kernel launched during phase 4, by the launch counters;
-  7. times of each kernel and its plain version (K1 also beside torch.matmul
-     of its operands and its bound, at both shapes), the 16 x 240 s
-     extraction realtime factor, and the config-1 query latency;
+  7. times of each kernel and its plain version (K1 and K2 also beside
+     torch.matmul of their operands and their bounds, at every shape), the
+     16 x 240 s extraction realtime factor, and the config-1 query latency;
   8. the catalog of BASELINE config 4 at benchmarks/config4_scale.py's own
      defaults: 100,000 random tracks x 60 s, 20 planted noisy 10 s queries;
 then, for each of HpfwConfig() (phase-aligned plants) and
@@ -46,8 +48,10 @@ then, on the catalog_scale() catalog, whose rows also hold 16 synthetic
  17. StreamingSession (rigid) on one 30 s stream; match and step p50/p99.
 Each path (phases 4, 10, 14, 15, 16, 17) runs with the launch counters set
 to 0 just before it and read just after; comparison and timing launches are
-not counted. The last two lines are a JSON object of per-kernel results
-(time, plain and library time, bound) and {"ok": true, "device": {...}}.
+not counted. Kernel times are CUDA events over launches queued behind a
+spin kernel (cuda_ms). The last two lines are a JSON object of per-kernel
+results (time, plain and library time, bound) and {"ok": true, "device":
+{...}}.
 Imports nothing of jax or hpfw_tpu.
 """
 
@@ -85,6 +89,7 @@ SERVE_KW = dict(max_batch=16, max_wait_ms=4.0, depth=2, max_queue=64)
 STREAMS, STREAM_SECONDS, STREAM_SEED = 16, 60.0, 7000
 POOL_SIZES, CHUNK_PRINTS, QUERY_PRINTS = (8, 16), 32, 128
 POOL_WARM_TICKS, POOL_TICKS = QUERY_PRINTS // CHUNK_PRINTS + 3, 30
+WINDOW_OFFSETS = (0, 1, 37, 113, 4000)      # K2's 32-print windows cut from the 240 s spectrum
 SESSION_SECONDS = 30.0
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, dense
@@ -157,16 +162,30 @@ def log(msg: str) -> None:
     print(f"{msg}  [{CARD}]" if CARD else msg, flush=True)
 
 
+# Clock cycles a second that torch.cuda._sleep spins, at least: the H100's
+# top SM clock (a lower clock only lengthens the spin).
+SPIN_CYCLES_PER_S = 2.0e9
+
+
 def cuda_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
-    """Mean device time of fn() in ms, by CUDA events after one warm-up."""
+    """Mean device time of fn() in ms, by CUDA events after one warm-up.
+
+    The timed calls queue up behind a spin kernel that lasts longer than the
+    host takes to enqueue them, so the card runs them back to back: a kernel
+    shorter than its host launch cost is timed on the card, not the host.
+    """
     fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     fn()
     end.record()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     once = max(start.elapsed_time(end), 1e-3)
     reps = int(min(max_reps, max(1, min_total_ms // once)))
+    torch.cuda._sleep(int(min(2.0, 1.5 * reps * host_s + 1e-3) * SPIN_CYCLES_PER_S))
     start.record()
     for _ in range(reps):
         fn()
@@ -276,6 +295,27 @@ def run(dev: torch.device) -> list[dict]:
             f"{err:.3e} (<= 1e-4); prints {tuple(pk.shape)} differing bits {bits} "
             f"(<= {limit})")
 
+    # The pool's and the session's launch: 67 frames -> 32 prints, cut from the
+    # 240 s spectrum, equal to the whole-track launch's prints there bit for bit.
+    l_spec = specs["track_240s"][1]
+    w_frames = CHUNK_PRINTS + cfg.context_w - 1 + cfg.delta_lag
+    whole = fp_ops.encoder_kernel(l_spec, filt, cfg)
+    for o in WINDOW_OFFSETS:
+        w_spec = l_spec[o:o + w_frames]
+        pk = fp_ops.encoder_kernel(w_spec, filt, cfg)
+        pr = fp_ops.fingerprint_from_spec_ref(w_spec, filt, cfg)
+        bits = differing_bits(pk, pr)
+        check(pk.shape == (CHUNK_PRINTS, 2) and bits <= 2,
+              f"K2 window_32 at frame {o}: shape {tuple(pk.shape)}, {bits} differing bits > 2")
+        check(torch.equal(pk, whole[o:o + CHUNK_PRINTS]),
+              f"K2 window_32 at frame {o}: differs from the whole-track prints")
+        k2_bits += bits
+        k2_err = max(k2_err, int(bits > 0))
+    specs["window_32"] = (None, l_spec[WINDOW_OFFSETS[-1]:WINDOW_OFFSETS[-1] + w_frames])
+    log(f"phase 3 K2 window_32: {w_frames} frames -> {CHUNK_PRINTS} prints at frames "
+        f"{', '.join(map(str, WINDOW_OFFSETS))} of the 240 s spectrum: within 2 bits of the "
+        f"plain version and equal to the whole-track launch's prints bit for bit")
+
     rng_db = np.random.default_rng(3)
     n_q = cfg.n_hashprints(int(round(QUERY_SECONDS * cfg.sample_rate)))
     n_db = cfg.n_hashprints(int(round(CFG1_SECONDS * cfg.sample_rate)))
@@ -369,6 +409,7 @@ def run(dev: torch.device) -> list[dict]:
     # ---- phase 7: times on the card ----
     q_frames, q_spec = specs["query_10s"]
     l_frames, l_spec = specs["track_240s"]
+    w_spec = specs["window_32"][1]
     q_dev = torch.from_numpy(qfp.view(np.int32)).to(dev)
     db_p, db_l = db.device_arrays()
     times = {
@@ -380,6 +421,8 @@ def run(dev: torch.device) -> list[dict]:
                          lambda: fp_ops.fingerprint_from_spec_ref(q_spec, filt, cfg)),
         "K2 track_240s": (lambda: fp_ops.encoder_kernel(l_spec, filt, cfg),
                           lambda: fp_ops.fingerprint_from_spec_ref(l_spec, filt, cfg)),
+        "K2 window_32": (lambda: fp_ops.encoder_kernel(w_spec, filt, cfg),
+                         lambda: fp_ops.fingerprint_from_spec_ref(w_spec, filt, cfg)),
         "K3 config1_db": (lambda: matcher.score_tracks_kernel(q_dev, db_p, db_l),
                           lambda: matcher.score_tracks_ref(q_dev, db_p, db_l)),
         "K3 catalog_1000": (lambda: matcher.score_tracks_kernel(cat_qt, cat_p, cat_l),
@@ -393,7 +436,6 @@ def run(dev: torch.device) -> list[dict]:
         log(f"phase 7 time {name}: kernel {measured[name][0]:.4f} ms, plain "
             f"{measured[name][1]:.4f} ms")
 
-    del cat_db, cat_p, cat_l
     batch = torch.from_numpy(long_pcm).to(dev).expand(BATCH, -1).contiguous()
 
     def plain_batch():
@@ -429,23 +471,42 @@ def run(dev: torch.device) -> list[dict]:
                                  "bf16_tensor")
         k1_libs[label] = cuda_ms(lambda: torch.matmul(frames, kmat))
     k1_bound, k1_lib = k1_bounds["query_10s"], k1_libs["query_10s"]
-    m_rows = q_spec.shape[0] - cfg.context_w + 1
-    k2_bound = bound(nbytes(q_spec, filt) + 8 * (m_rows - cfg.delta_lag),
-                     X6_PASSES * 2 * m_rows * cfg.context_dim * cfg.n_filters, "bf16_tensor")
-    valid = (db_l.to(torch.int64) - q_dev.shape[0]).clamp(min=0) + 1
-    k3_bound = bound(nbytes(q_dev, db_p, db_l) + 8 * db_p.shape[0],
-                     int(valid.sum()) * q_dev.shape[0] * 2 * WORD_OPS, "int32")
+    # K2: six bf16 products of each float32 product of the projection (the
+    # TPU's X6 split), over the spectrum, the filters and the prints; library:
+    # torch.matmul of the unfolded (rows, context_dim) context and the
+    # filters, the GEMM only.
+    k2_bounds, k2_libs = {}, {}
+    for label, spec_ in (("query_10s", q_spec), ("track_240s", l_spec), ("window_32", w_spec)):
+        m_rows = spec_.shape[0] - cfg.context_w + 1
+        k2_bounds[label] = bound(nbytes(spec_, filt) + 8 * (m_rows - cfg.delta_lag),
+                                 X6_PASSES * 2 * m_rows * cfg.context_dim * cfg.n_filters,
+                                 "bf16_tensor")
+        ctx = spec_.unfold(0, cfg.context_w, 1).transpose(1, 2).reshape(m_rows, -1)
+        k2_libs[label] = cuda_ms(lambda: torch.matmul(ctx, filt))
+        log(f"phase 7 K2 {label}: kernel {measured['K2 ' + label][0]:.4f} ms, plain "
+            f"{measured['K2 ' + label][1]:.4f} ms, library torch.matmul of the unfolded "
+            f"{tuple(ctx.shape)} context and the filters {k2_libs[label]:.4f} ms (TF32 off), "
+            f"bound {k2_bounds[label][0]:.4f} ms ({k2_bounds[label][1]})")
+    k2_bound, k2_lib = k2_bounds["query_10s"], k2_libs["query_10s"]
+    k3_bounds = {}
+    for label, (q_, p_, l_) in (("config1_db", (q_dev, db_p, db_l)),
+                                ("catalog_1000", (cat_qt, cat_p, cat_l))):
+        valid = (l_.to(torch.int64) - q_.shape[0]).clamp(min=0) + 1
+        k3_bounds[label] = bound(nbytes(q_, p_, l_) + 8 * p_.shape[0],
+                                 int(valid.sum()) * q_.shape[0] * 2 * WORD_OPS, "int32")
+    k3_bound = k3_bounds["config1_db"]
     for label in k1_bounds:
         log(f"phase 7 K1 {label}: kernel {measured['K1 ' + label][0]:.4f} ms, library "
             f"torch.matmul of its operands {k1_libs[label]:.4f} ms (TF32 off), bound "
             f"{k1_bounds[label][0]:.4f} ms ({k1_bounds[label][1]})")
-    log(f"phase 7 bounds: K1 query_10s {k1_bound[0]:.4f} ms ({k1_bound[1]}), K2 query_10s "
-        f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), K3 config1_db {k3_bound[0]:.4f} ms "
-        f"({k3_bound[1]})")
+    log(f"phase 7 bounds: K1 query_10s {k1_bound[0]:.4f} ms ({k1_bound[1]}), "
+        + ", ".join(f"K2 {k} {v[0]:.4f} ms ({v[1]})" for k, v in k2_bounds.items()) + ", "
+        + ", ".join(f"K3 {k} {v[0]:.4f} ms ({v[1]})" for k, v in k3_bounds.items()))
+    del cat_db, cat_p, cat_l
     rows = (("cqt_filterbank", "cqt", "frontend.cu", "pallas_frontend.py:68", k1_err,
              "K1 query_10s", k1_bound, k1_lib),
             ("hashprint_encoder", "fingerprint", "fingerprint.cu", "pallas_fingerprint.py:63",
-             k2_err, "K2 query_10s", k2_bound, None),
+             k2_err, "K2 query_10s", k2_bound, k2_lib),
             ("hamming_scan", "score_tracks", "match.cu", "pallas_match.py:41", k3_err,
              "K3 config1_db", k3_bound, None))
     kernels = []
@@ -579,16 +640,23 @@ def run_catalog(dev: torch.device) -> list[dict]:
             max_o = (cand_len - n_q).clamp(min=0)
             past = int(((f_starts + n_fine - 1) > max_o).sum())
             # This run's work: each band offset up to max(len - N, 0), over
-            # min(N, len) prints; the band's prints read once.
+            # min(N, len) print pairs of 64 +-1 products each on the int8
+            # tensor cores (K5's formulation); the band's prints read once.
+            # Logged beside it: the popcount formulation's count (xor,
+            # popcount and add a 32-bit word) on int32.
             n_valid = (max_o - f_starts + 1).clamp(0, n_fine)
-            fine_ops = int((n_valid * cand_len.clamp(max=n_q)).sum()) * 2 * WORD_OPS
+            fine_pairs = int((n_valid * cand_len.clamp(max=n_q)).sum())
+            fine_bytes = (8 * f_tracks.numel() * span + nbytes(qs[:FINE_QUERIES]) +
+                          4 * f_tracks.numel() * 4)
+            fine_int32 = bound(fine_bytes, fine_pairs * 2 * WORD_OPS, "int32")
+            log(f"  K5 bound on int32 words (the popcount formulation): "
+                f"{fine_int32[0]:.4f} ms ({fine_int32[1]})")
             checks["fine_rescan"] = (
                 f"{FINE_QUERIES} queries x {FINE_CANDIDATES} candidates, band {n_fine}, "
                 f"{past} bands past max(len - N, 0)",
                 lambda: fine.fine_rescan_kernel(*f_args, n_fine=n_fine),
                 lambda: fine.fine_rescan_ref(*f_args, n_fine=n_fine),
-                bound(8 * f_tracks.numel() * span + nbytes(qs[:FINE_QUERIES]) +
-                      4 * f_tracks.numel() * 4, fine_ops, "int32"))
+                bound(fine_bytes, fine_pairs * 64 * 2, "int8_tensor"))
         else:
             rows1 = ts.db_c1[:KERNEL_ROWS]
             q1 = _phase_variants(qs[:8], stride=ts.stride, phases=ts.prefilter_phases,

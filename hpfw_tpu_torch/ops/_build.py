@@ -3,9 +3,10 @@
 At first use, nvcc compiles every csrc/*.cu for sm_90a (Hopper), one
 process a source, all started together, and links the objects into one
 shared library with a plain C interface, which ctypes loads. The library goes
-into build/hpfw_tpu_torch/<hash of sources and flags>/ at the repository
-root, so a changed source builds anew and an unchanged one is reused. There
-is no fallback: a missing nvcc, a failed build or a failed launch raises.
+into build/hpfw_tpu_torch/<hash of sources, headers and flags>/ at the
+repository root, so a changed source or csrc/*.cuh header builds anew and an
+unchanged tree is reused. There is no fallback: a missing nvcc, a failed
+build or a failed launch raises.
 
 Each wrapper that launches a kernel adds one to its entry of LAUNCHES, so a
 run can show that its main path went through the kernels.
@@ -58,11 +59,13 @@ def find_nvcc() -> str:
 
 
 def build_library() -> Path:
-    """Compile csrc/*.cu into one shared library unless it is already built."""
+    """Compile csrc/*.cu (with csrc/*.cuh) into one shared library unless it
+    is already built."""
     nvcc = find_nvcc()
     sources = sorted(CSRC.glob("*.cu"))
+    # The headers (csrc/*.cuh) are part of every source that includes them.
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
@@ -106,7 +109,9 @@ def library() -> ctypes.CDLL:
     # passed as a 32-bit int and a device address would be cut.
     lib.hpfw_cqt.argtypes = [ptr, i64, i32, i32, ptr, i32, i32, ctypes.c_float, ptr, ptr]
     lib.hpfw_fingerprint.argtypes = [ptr, i32, i32, ptr, i32, i32, i32, i32, i32,
-                                     ptr, ptr]
+                                     ptr, ptr, ptr]
+    lib.hpfw_fingerprint_scratch.argtypes = [i32, i32, i32]
+    lib.hpfw_fingerprint_scratch.restype = i64
     lib.hpfw_score_tracks.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr]
     lib.hpfw_coarse_scan.argtypes = [ptr, i32, i32, i32, i32, ptr, i64, i32, ptr, i32,
                                      i32, i32, i32, ptr, ptr, ptr]

@@ -5,9 +5,9 @@ difference of two projections, and TF32's 10-bit mantissa moves the spectra
 far past the margin audit (tests/test_torch_fingerprint.py). PyTorch leaves
 cuBLAS matmuls in full f32 by default but lets cuDNN use TF32, and either
 can be switched by other code in the process, so importing this module pins
-all three switches. The kernels in csrc/ use FFMA and never see TF32; the
-switches govern the plain versions that the tests and chip_smoke.py compare
-them with.
+all three switches. The kernels in csrc/ never see TF32 (K1 and K2 run
+three-way split bf16 products that carry float32 precision); the switches
+govern the plain versions that the tests and chip_smoke.py compare them with.
 """
 
 from __future__ import annotations

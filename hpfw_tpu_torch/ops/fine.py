@@ -14,8 +14,11 @@ Prints are read from the (T, L, 2) int32 print array. The tight flat word
 planes of the reference's single-device layout (plane_lpad / plane_pad) are
 kept only for the two-stage cache format that both packages read and write.
 
-On CUDA tensors fine_rescan_batch launches K5 (csrc/fine.cu); on CPU
-tensors it runs the plain version, fine_rescan_ref.
+On CUDA tensors fine_rescan_batch launches K5 (csrc/fine.cu), which scores
+the band as the TPU kernel does, sim = (corr + 64 * kcut) / 2 with corr the
++-1 product of the query and the window zeroed outside [0, len_t), on the
+int8 tensor cores; it takes any query length and band width. On CPU tensors
+it runs the plain version, fine_rescan_ref.
 """
 
 from __future__ import annotations
@@ -97,9 +100,6 @@ def fine_rescan_kernel(queries: torch.Tensor, prints: torch.Tensor,
                          f"{tuple(cand_tracks.shape)}, {tuple(cand_starts.shape)}")
     if n_fine < 1:
         raise ValueError(f"n_fine must be >= 1, got {n_fine}")
-    if n * 8 > 227 * 1024:
-        raise ValueError(f"the rescan kernel takes queries of at most "
-                         f"{227 * 1024 // 8} prints, got {n}")
     if b > 65535:
         raise ValueError(f"at most 65535 queries a launch, got {b}")
     if queries.data_ptr() % 8 or prints.data_ptr() % 8:

@@ -16,9 +16,11 @@ from ..config import HpfwConfig
 from . import _build
 from .dot import precise_matmul
 
-# K2 computes TILE + delta_lag projection rows per block, at most 128
-# (csrc/fingerprint.cu: TILE = 64, 16 row lanes x MAX_RPT = 8 rows).
+# K2 computes a tile of 128 projection rows a cluster, which yields 128 -
+# delta_lag prints, and stages at most 128 bins a context frame
+# (csrc/fingerprint.cu: ROWS, MAX_LAG, MAX_BINS).
 MAX_DELTA_LAG = 64
+MAX_BINS = 128
 
 
 def project_features(spec: torch.Tensor, filters: torch.Tensor,
@@ -93,20 +95,26 @@ def encoder_kernel(spec: torch.Tensor, filters: torch.Tensor,
     if tuple(filters.shape) != (cfg.context_dim, cfg.n_filters):
         raise ValueError(f"filters must be ({cfg.context_dim}, {cfg.n_filters}), "
                          f"got {tuple(filters.shape)}")
+    if cfg.n_bins > MAX_BINS:
+        raise ValueError(f"the encoder kernel takes at most {MAX_BINS} bins, "
+                         f"got {cfg.n_bins}")
     if not 1 <= cfg.delta_lag <= MAX_DELTA_LAG:
         raise ValueError(f"the encoder kernel takes delta_lag in [1, "
                          f"{MAX_DELTA_LAG}], got {cfg.delta_lag}")
-    if filters.data_ptr() % 16:
-        raise ValueError("filters must be 16-byte aligned (float4 loads)")
     f = spec.shape[0]
     n = max(0, f - cfg.context_w + 1 - cfg.delta_lag)
     out = torch.empty((n, 2), dtype=torch.int32, device=spec.device)
     if n == 0:
         return out
+    # The split filters and spectrum (bf16 parts in the kernel's layouts),
+    # written by K2's split pass and read by its encoder.
+    scratch = torch.empty(_build.library().hpfw_fingerprint_scratch(f, cfg.n_bins,
+                                                                    cfg.context_w),
+                          dtype=torch.uint8, device=spec.device)
     _build.launch("fingerprint", "hpfw_fingerprint", spec.device,
                   spec.data_ptr(), f, cfg.n_bins, filters.data_ptr(),
                   cfg.context_w, cfg.delta_lag, n, int(cfg.tie_break == "ge"),
-                  int(cfg.bit_order == "msb0"), out.data_ptr())
+                  int(cfg.bit_order == "msb0"), scratch.data_ptr(), out.data_ptr())
     return out
 
 

@@ -8,6 +8,8 @@ machine has no jax, so run this file there without the repo's conftest:
 Imports nothing of jax or hpfw_tpu.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -97,6 +99,93 @@ def test_encoder_kernel_matches_plain(dev, bit_order, tie_break):
     flat = torch.zeros_like(spec)
     tied = fp_ops.encoder_kernel(flat, filt, cfg)
     assert torch.equal(tied, fp_ops.fingerprint_from_spec_ref(flat, filt, cfg))
+
+
+@functools.cache
+def _track_spec(dev_name: str) -> torch.Tensor:
+    """K1's spectrum of a 240 s track at the default config (10,320 frames)."""
+    cfg = HpfwConfig()
+    pcm = torch.from_numpy(synth.synth_track(100, 240.0, cfg)).to(dev_name)
+    return frontend.cqt(pcm, cfg)
+
+
+def _encoder_check(spec, filt, cfg):
+    """K2 on spec, held to the plain version: at most max(2, bits/10000)."""
+    got = fp_ops.encoder_kernel(spec, filt, cfg)
+    want = fp_ops.fingerprint_from_spec_ref(spec, filt, cfg)
+    assert got.shape == want.shape == (spec.shape[0] - cfg.context_w + 1 - cfg.delta_lag, 2)
+    assert _bits(got, want) <= max(2, got.numel() * 32 // 10000)
+    return got
+
+
+def test_encoder_windows_equal_whole_track(dev):
+    """67-frame windows (32 prints, the streaming launch) cut anywhere in a
+    240 s spectrum give the whole-track launch's prints bit for bit."""
+    cfg = HpfwConfig()
+    filt = filters_from_jax(_filters(cfg), cfg, dev)
+    spec = _track_spec(str(dev))
+    whole = _encoder_check(spec, filt, cfg)
+    assert whole.shape[0] == 10285
+    for o in (0, 1, 37, 113, 4000):
+        win = _encoder_check(spec[o:o + 67], filt, cfg)
+        assert win.shape[0] == 32 and torch.equal(win, whole[o:o + 32])
+
+
+@pytest.mark.parametrize("n_prints", [1, 111, 112, 113, 380, 10285])
+def test_encoder_print_counts(dev, n_prints):
+    """One print, either side of a 112-print tile, a 10 s query, a 240 s
+    track: within the bit gate, and equal to the 240 s launch's first prints."""
+    cfg = HpfwConfig()
+    filt = filters_from_jax(_filters(cfg), cfg, dev)
+    spec = _track_spec(str(dev))
+    got = _encoder_check(spec[:n_prints + cfg.context_w - 1 + cfg.delta_lag], filt, cfg)
+    whole = fp_ops.encoder_kernel(spec, filt, cfg)
+    assert torch.equal(got, whole[:n_prints])
+
+
+@pytest.mark.parametrize("lag", [1, 16, 64])
+def test_encoder_delta_lags(dev, lag):
+    cfg = HpfwConfig(delta_lag=lag)
+    filt = filters_from_jax(_filters(cfg, seed=lag), cfg, dev)
+    _encoder_check(_track_spec(str(dev))[:1000], filt, cfg)
+
+
+@pytest.mark.parametrize("bit_order", ["lsb0", "msb0"])
+@pytest.mark.parametrize("tie_break", ["gt", "ge"])
+def test_encoder_default_config_orders_and_ties(dev, bit_order, tie_break):
+    cfg = HpfwConfig(bit_order=bit_order, tie_break=tie_break)
+    filt = filters_from_jax(_filters(cfg), cfg, dev)
+    _encoder_check(_track_spec(str(dev))[:415], filt, cfg)
+    flat = torch.zeros((415, cfg.n_bins), device=dev)        # every delta exactly 0
+    assert torch.equal(fp_ops.encoder_kernel(flat, filt, cfg),
+                       fp_ops.fingerprint_from_spec_ref(flat, filt, cfg))
+
+
+@pytest.mark.parametrize("context_w", [1, 5])
+def test_encoder_ranks_without_context_frames(dev, context_w):
+    """context_w 1 and 5 leave cluster ranks with no context frame; over a
+    grid of several waves each block still waits for all of its copies, so
+    no late copy lands in a later block's shared memory."""
+    cfg = HpfwConfig(**dict(SMALL, context_w=context_w))
+    filt = filters_from_jax(_filters(cfg, seed=context_w), cfg, dev)
+    rng = np.random.default_rng(context_w)
+    spec = torch.from_numpy(rng.standard_normal((6000, cfg.n_bins)).astype(np.float32)).to(dev)
+    got = _encoder_check(spec, filt, cfg)
+    assert torch.equal(fp_ops.encoder_kernel(spec[100:400], filt, cfg),
+                       got[100:400 - context_w + 1 - cfg.delta_lag])
+
+
+def test_chunked_extractor_default_config_equals_fingerprint(dev):
+    """The pool's and the session's launch (32 prints a window) at the default
+    config: the streamed prints are api.fingerprint's, bit for bit."""
+    cfg = HpfwConfig()
+    filters = _filters(cfg)
+    pcm = synth.synth_track(42, 20.0, cfg)
+    ex = ChunkedExtractor(filters, cfg, chunk_prints=32, device=dev)
+    got = np.concatenate([ex.feed(pcm[i:i + 12345]) for i in range(0, len(pcm), 12345)])
+    assert got.shape[0] >= 32 * 20
+    whole = api.fingerprint(pcm, filters, cfg, device=dev)
+    np.testing.assert_array_equal(got, whole[:got.shape[0]])
 
 
 def _random_db(rng, lengths, l_pad=None):
@@ -323,6 +412,40 @@ def test_fine_kernel_matches_plain(dev):
     want = fine.fine_rescan_ref(*args, n_fine=n_fine)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[0][0, 0]) == 64 * n and int(got[1][0, 0]) == 200
+
+
+@pytest.mark.parametrize("n,n_fine", [(1, 1), (1, 65), (430, 1), (430, 32), (430, 33),
+                                     (430, 65), (2000, 33)])
+def test_fine_kernel_bands_and_lengths(dev, n, n_fine):
+    """K5 equal to its plain version for bands of 1-65 offsets (one to two
+    passes of 48 rows) and queries of 1-2,000 prints, with tracks shorter
+    than the query, random prints past every length (the kernel must not
+    read them as zeros), out-of-range track indices, negative starts, a
+    ragged last block of candidates and planted ties."""
+    rng = np.random.default_rng(n * 100 + n_fine)
+    t, l = 50, 3000
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    lengths = rng.integers(0, l + 1, t).astype(np.int32)
+    lengths[:4] = [l, n // 2, 0, n]
+    # A query of period 10 planted as a longer run: equal peaks at offsets
+    # 500 and 510 of track 0, and the first wins.
+    run = np.tile(rng.integers(0, 2 ** 32, (10, 2), dtype=np.uint32), (n // 10 + 2, 1))
+    qs = rng.integers(0, 2 ** 32, (3, n, 2), dtype=np.uint32)
+    qs[0] = run[:n]
+    prints[0, 500:510 + n] = run[:n + 10]
+    k = 100
+    tracks = rng.integers(0, t, (3, k)).astype(np.int32)
+    starts = rng.integers(-8, l - n, (3, k)).astype(np.int32)
+    tracks[0, :8] = [0, 0, 1, 2, 3, -1, t, t + 7]
+    starts[0, :8] = [500 - n_fine // 2, 500, 0, 0, 0, 10, 10, 10]
+    args = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+            for a in (qs, prints, lengths, tracks, starts)]
+    got = fine.fine_rescan_kernel(*args, n_fine=n_fine)
+    want = fine.fine_rescan_ref(*args, n_fine=n_fine)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0][0, 1]) == 64 * n and int(got[1][0, 1]) == 500
+    if n_fine > 20:
+        assert int(got[1][0, 0]) == 500
 
 
 @pytest.mark.parametrize("preset", ["default", "catalog_scale", "catalog_scale_pack4"])

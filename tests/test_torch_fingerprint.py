@@ -18,6 +18,7 @@ from hpfw_tpu.ops.pallas_fingerprint import (pad_filters_split,
 from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.ops import fingerprint as fp_ops
 from hpfw_tpu_torch.ops import fused
+from tests.test_torch_frontend import _split3
 from tests.test_tpu_pipeline import assert_bits_match_with_margin_audit
 
 
@@ -97,3 +98,105 @@ def test_encoder_short_spectrum_gives_no_prints(cfg):
     spec = torch.zeros((cfg.context_w + cfg.delta_lag - 1, cfg.n_bins))
     out = fp_ops.fingerprint_from_spec(spec, torch.zeros((cfg.context_dim, 64)), port)
     assert out.shape == (0, 2) and out.dtype == torch.int32
+
+
+KSPLIT = 4           # K2's fixed parts of the context frames (its cluster)
+WGS = 2              # K2's warpgroups a block, each a fixed half of its slices
+SLICE = 32           # K2's reduction slice
+
+
+def _bin_pad(cfg):
+    return -(-cfg.n_bins // SLICE) * SLICE
+
+
+def _pad_bins(x: torch.Tensor, w: int, cfg) -> torch.Tensor:
+    """(rows, w * n_bins) or (w * n_bins, cols) -> the same with each context
+    frame's bins zero-padded to K2's bin_pad, along the context axis."""
+    pad = _bin_pad(cfg)
+    if x.shape[0] == w * cfg.n_bins:                       # filters
+        out = torch.zeros((w, pad, x.shape[1]), dtype=x.dtype)
+        out[:, :cfg.n_bins] = x.reshape(w, cfg.n_bins, -1)
+        return out.reshape(w * pad, -1)
+    out = torch.zeros((x.shape[0], w, pad), dtype=x.dtype)
+    out[:, :, :cfg.n_bins] = x.reshape(x.shape[0], w, cfg.n_bins)
+    return out.reshape(x.shape[0], w * pad)
+
+
+def _k2_order(spec: torch.Tensor, filters: torch.Tensor, cfg) -> torch.Tensor:
+    """Plain emulation of K2's arithmetic: both operands split into three bf16
+    parts, bins padded to a multiple of 32, the context frames cut into
+    KSPLIT fixed parts and each part's 32-deep slices into WGS fixed halves;
+    in each half, each slice's six products (exact in float64, then float32)
+    summed small first and folded into the half's sum; each rank's two
+    halves added, then the ranks in order, then the lag delta, sign and
+    pack."""
+    w = cfg.context_w
+    m = spec.shape[0] - w + 1
+    ctx = spec.unfold(0, w, 1).transpose(1, 2).reshape(m, w * cfg.n_bins)
+    ah, am, al = (x.double() for x in _split3(_pad_bins(ctx, w, cfg)))
+    fh, fm, fl = (x.double() for x in _split3(_pad_bins(filters, w, cfg)))
+    frames = -(-w // KSPLIT)
+    slices = _bin_pad(cfg) // SLICE
+    y = torch.zeros((m, cfg.n_filters))
+    for rank in range(KSPLIT):
+        lo, hi = rank * frames * slices, max(0, min(w, (rank + 1) * frames)) * slices
+        half = -(-max(0, hi - lo) // WGS)
+        rank_sum = None
+        for wg in range(WGS):
+            acc = torch.zeros((m, cfg.n_filters))
+            for s in range(lo + wg * half, min(hi, lo + (wg + 1) * half)):
+                k = slice(s * SLICE, (s + 1) * SLICE)
+                prods = [fa[k].T @ sb[:, k].T for fa, sb in
+                         ((fl, ah), (fm, am), (fh, al), (fm, ah), (fh, am), (fh, ah))]
+                part = prods[0].float()
+                for p in prods[1:]:
+                    part = part + p.float()
+                acc = acc + part.T
+            rank_sum = acc if rank_sum is None else rank_sum + acc
+        y = y + rank_sum
+    return fp_ops.binarize_and_pack(fp_ops.delta(y, cfg), cfg)
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["default", "small"])
+def test_k2_split_equals_filters_pad_split(cfg, full):
+    """K2's in-kernel split (round to nearest bf16, the remainders exact in
+    float32) gives hpfw_tpu.ops.fused.filters_pad_split's parts bit for bit,
+    bins zero-padded per context frame."""
+    from hpfw_tpu.ops.fused import filters_pad_split
+    from hpfw_tpu.ops.pallas_fingerprint import BIN_PAD
+
+    jcfg = JaxConfig() if full else cfg
+    port = _port(jcfg)
+    filters = _filters(jcfg, seed=5)
+    want = filters_pad_split(jnp.asarray(filters), jcfg)
+    got = _split3(_pad_bins(torch.from_numpy(filters), jcfg.context_w, port))
+    w, b = jcfg.context_w, jcfg.n_bins
+    for g, x in zip(got, want):
+        g = g.to(torch.bfloat16).reshape(w, _bin_pad(port), -1)
+        x = np.asarray(x).reshape(w, BIN_PAD, -1)
+        np.testing.assert_array_equal(g[:, :b].view(torch.int16).numpy(),
+                                      x[:, :b].view(np.int16))
+        assert not g[:, b:].any() and not x[:, b:].astype(np.float32).any()
+
+
+def test_k2_split_gemm_emulation_beside_plain_and_pallas():
+    """K2's split-product order at the full config: within max(2, bits/10000)
+    differing bits of the plain version, and every bit that differs from the
+    Pallas kernel (interpret mode) or from the oracle inside the oracle's
+    margin."""
+    full = JaxConfig()
+    port = _port(full)
+    filters = _filters(full, seed=3)
+    pcm = synth.synth_track(21, 8.0, full)
+    spec = oracle.cqt(pcm, full).astype(np.float32)
+    spec_t, filt_t = torch.from_numpy(spec), torch.from_numpy(filters)
+    got = _k2_order(spec_t, filt_t, port)
+    plain = fp_ops.fingerprint_from_spec_ref(spec_t, filt_t, port)
+    assert got.shape == plain.shape == (full.n_hashprints(len(pcm)), 2)
+    assert int(np.bitwise_count(_u32(got) ^ _u32(plain)).sum()) <= max(2, got.numel() * 32 // 10000)
+    fh, fm, fl = (jnp.asarray(x) for x in pad_filters_split(filters, full))
+    pallas = np.asarray(pallas_fingerprint_from_spec_presplit(
+        jnp.asarray(spec), fh, fm, fl, full, interpret=True))
+    margins = oracle.delta_margins(pcm, filters, full)
+    assert_bits_match_with_margin_audit(_u32(got), pallas, margins)
+    assert_bits_match_with_margin_audit(_u32(got), oracle.fingerprint(pcm, filters, full), margins)
