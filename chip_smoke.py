@@ -17,7 +17,8 @@ Phases, each printing its own line; any failure raises and exits non-zero:
   5. a dense scan of a planted 1,000 x 7,701-print catalog;
   6. every kernel launched during phase 4, by the launch counters;
   7. times of each kernel and its plain version (K1 and K2 also beside
-     torch.matmul of their operands and their bounds, at every shape), the
+     torch.matmul of their operands, K3 beside conv1d of the tracks' 0/1 bit
+     channels by the +-1 query, and their bounds, at every shape), the
      16 x 240 s extraction realtime factor, and the config-1 query latency;
   8. the catalog of BASELINE config 4 at benchmarks/config4_scale.py's own
      defaults: 100,000 random tracks x 60 s, 20 planted noisy 10 s queries;
@@ -75,7 +76,6 @@ LONG_SECONDS = 240.0                        # bench.py's track length
 BATCH = 16                                  # bench.py's batch
 CAT_TRACKS, CAT_PRINTS, CAT_QUERY = 1000, 7701, 380   # 180 s tracks, 10 s query
 CAT_PLANT_TRACK, CAT_PLANT_OFFSET = 617, 4321
-CAT_COMPARE = 64
 # BASELINE config 4, benchmarks/config4_scale.py:49 defaults.
 CFG4_TRACKS, CFG4_SECONDS, CFG4_QUERY_SECONDS, CFG4_QUERIES = 100_000, 60, 10, 20
 CFG4_FLIP = 0.15
@@ -389,16 +389,17 @@ def run(dev: torch.device) -> list[dict]:
           f"planted catalog: top {c_ids[0]} @ {c_offs[0]} score {c_scores[0]}")
     cat_p, cat_l = cat_db.device_arrays()
     cat_qt = torch.from_numpy(cat_q.view(np.int32)).to(dev)
-    sk, ok_ = matcher.score_tracks_kernel(cat_qt, cat_p[:CAT_COMPARE], cat_l[:CAT_COMPARE])
-    sr, or_ = matcher.score_tracks_ref(cat_qt, cat_p[:CAT_COMPARE], cat_l[:CAT_COMPARE])
+    # The whole catalog, at the geometry that phase 7 times (several items a
+    # persistent block, each prefetching the next).
+    sk, ok_ = matcher.score_tracks_kernel(cat_qt, cat_p, cat_l)
+    sr, or_ = matcher.score_tracks_ref(cat_qt, cat_p, cat_l)
     cat_err = max(int((sk - sr).abs().max()), int((ok_ - or_).abs().max()))
-    check(cat_err == 0,
-          "planted catalog: K3 differs from the plain scan on the first tracks")
+    check(cat_err == 0, "planted catalog: K3 differs from the plain scan")
     k3_err = max(k3_err, cat_err)
     log(f"phase 5 catalog: {CAT_TRACKS} x {CAT_PRINTS} prints "
         f"({cat.nbytes / 1e6:.0f} MB), query {CAT_QUERY}: {c_ids[0]} @ "
         f"{int(c_offs[0])} score {int(c_scores[0])} (#2 {int(c_scores[1])}); "
-        f"K3 = plain on the first {CAT_COMPARE} tracks")
+        f"K3 = plain on all {CAT_TRACKS} tracks")
 
     # ---- phase 6: the main path went through every kernel ----
     check(all(launches.get(k, 0) > 0 for k in ("cqt", "fingerprint", "score_tracks")),
@@ -488,13 +489,41 @@ def run(dev: torch.device) -> list[dict]:
             f"{tuple(ctx.shape)} context and the filters {k2_libs[label]:.4f} ms (TF32 off), "
             f"bound {k2_bounds[label][0]:.4f} ms ({k2_bounds[label][1]})")
     k2_bound, k2_lib = k2_bounds["query_10s"], k2_libs["query_10s"]
-    k3_bounds = {}
+    # K3: each visited offset (o <= max(len - N, 0)) over min(len, N) print
+    # pairs of 64 +-1 products on the int8 tensor cores (its formulation);
+    # logged beside it, the popcount formulation's count (xor, popcount and
+    # add a 32-bit word) on int32. Library: torch.nn.functional.conv1d of the
+    # 0/1 bit channels of every track by the +-1 query (cuDNN, TF32 off), the
+    # correlation alone at every offset; the port never calls it.
+    k3_bounds, k3_libs = {}, {}
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN may round float32 to TF32")
     for label, (q_, p_, l_) in (("config1_db", (q_dev, db_p, db_l)),
                                 ("catalog_1000", (cat_qt, cat_p, cat_l))):
-        valid = (l_.to(torch.int64) - q_.shape[0]).clamp(min=0) + 1
-        k3_bounds[label] = bound(nbytes(q_, p_, l_) + 8 * p_.shape[0],
-                                 int(valid.sum()) * q_.shape[0] * 2 * WORD_OPS, "int32")
-    k3_bound = k3_bounds["config1_db"]
+        n_q_ = q_.shape[0]
+        lens_ = l_.to(torch.int64)
+        valid = (lens_ - n_q_).clamp(min=0) + 1
+        pairs = int((valid * lens_.clamp(max=n_q_)).sum())
+        k3_bytes = nbytes(q_, p_, l_) + 8 * p_.shape[0]
+        k3_bounds[label] = bound(k3_bytes, pairs * 64 * 2, "int8_tensor")
+        k3_int32 = bound(k3_bytes, pairs * 2 * WORD_OPS, "int32")
+        shifts = torch.arange(32, device=dev, dtype=torch.int32)
+        chans = ((p_[..., None] >> shifts) & 1).reshape(p_.shape[0], p_.shape[1], 64)
+        inside = torch.arange(p_.shape[1], device=dev)[None, :] < l_[:, None]
+        x01 = (chans * inside[..., None]).transpose(1, 2).float().contiguous()  # (T, 64, L)
+        w_pm1 = (2 * ((q_[..., None] >> shifts) & 1) - 1).reshape(n_q_, 64).T[None].float()
+        corr = torch.nn.functional.conv1d(x01, w_pm1.contiguous())
+        pc = ((q_[..., None] >> shifts) & 1).sum()
+        s0, o0_ = matcher.score_tracks_ref(q_, p_[:1], l_[:1])      # track 0 is full length
+        check(int(corr[0, 0, int(o0_[0])]) + 64 * n_q_ - int(pc) == int(s0[0]),
+              f"K3 {label}: the conv1d correlation disagrees with the plain scan")
+        k3_libs[label] = cuda_ms(lambda: torch.nn.functional.conv1d(x01, w_pm1))
+        del chans, x01, corr
+        log(f"phase 7 K3 {label}: kernel {measured['K3 ' + label][0]:.4f} ms, plain "
+            f"{measured['K3 ' + label][1]:.4f} ms, library conv1d of the 0/1 bit channels "
+            f"by the +-1 query {k3_libs[label]:.4f} ms (cuDNN, TF32 off), bound "
+            f"{k3_bounds[label][0]:.4f} ms ({k3_bounds[label][1]}, int8 tensor operations); "
+            f"the popcount formulation's int32 bound {k3_int32[0]:.4f} ms ({k3_int32[1]})")
+    k3_bound, k3_lib = k3_bounds["config1_db"], k3_libs["config1_db"]
     for label in k1_bounds:
         log(f"phase 7 K1 {label}: kernel {measured['K1 ' + label][0]:.4f} ms, library "
             f"torch.matmul of its operands {k1_libs[label]:.4f} ms (TF32 off), bound "
@@ -508,7 +537,7 @@ def run(dev: torch.device) -> list[dict]:
             ("hashprint_encoder", "fingerprint", "fingerprint.cu", "pallas_fingerprint.py:63",
              k2_err, "K2 query_10s", k2_bound, k2_lib),
             ("hamming_scan", "score_tracks", "match.cu", "pallas_match.py:41", k3_err,
-             "K3 config1_db", k3_bound, None))
+             "K3 config1_db", k3_bound, k3_lib))
     kernels = []
     for name, counter, src, tpu, err, timed, (b_ms, b_by), lib in rows:
         kernels.append({

@@ -49,6 +49,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "mma_s8.cuh"
+
 namespace {
 
 constexpr int WARPS = 4;
@@ -60,19 +62,10 @@ __device__ __forceinline__ long long pack_key(int corr, int offset) {
   return (long long)corr * 4294967296LL + (long long)(~(unsigned)offset);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 or 8 bytes from global to shared, zero-filled when !valid.
+// 16 bytes from global to shared, zero-filled when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 8 : 0));
 }
 
 // 16 bytes, of which the first n (0..16) are copied and the rest zero-filled.
@@ -81,33 +74,10 @@ __device__ __forceinline__ void cp_async_zfill16(void* dst, const void* src, int
                "l"(src), "r"(n));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
 __device__ __forceinline__ void ldmatrix_x2(unsigned& r0, unsigned& r1, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
                : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One packed word -> 8 features: each byte's low nibble, then its high

@@ -13,6 +13,8 @@ pattern of the uint32 words. On CUDA tensors score_tracks launches K3
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -21,9 +23,29 @@ from ..ops import _build
 # Elements (tracks x offsets x query prints) per block of the plain scan,
 # which bounds its int64 temporaries to a few tens of MB.
 REF_BLOCK_ELEMS = 1 << 22
-# K3 holds the query in shared memory: 8 bytes a print, at most 227 KB.
-MAX_QUERY_PRINTS = 227 * 1024 // 8
+# K3 streams the query in chunks, so any length scans that keeps 64 * N (its
+# int32 correlation) and the block count in range.
+MAX_QUERY_PRINTS = (2 ** 31 - 1) // 128
 _MASK32 = 0xFFFFFFFF
+
+# Offsets a track from which K3 takes its large block tile (2,048 offsets a
+# block, one block an SM) over its small one (512, two blocks an SM, which
+# spreads short tracks over the SMs). csrc/match.cu decides the rest of the
+# launch.
+SCAN_LARGE_FROM = 2048
+
+
+def scan_geometry(n_query: int, track_len: int) -> tuple[int, int, int, int]:
+    """K3's launch as csrc/match.cu decides it: (tile, query positions a
+    chunk, shared memory a block in bytes, items a track)."""
+    tile, cpos, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    n_blocks = _build.library().hpfw_score_tracks_geometry(
+        n_query, track_len, SCAN_LARGE_FROM, ctypes.byref(tile), ctypes.byref(cpos),
+        ctypes.byref(smem))
+    if n_blocks < 0:
+        raise ValueError(f"the scan kernel takes no query of {n_query} prints over tracks "
+                         f"padded to {track_len}")
+    return tile.value, cpos.value, smem.value, n_blocks
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -100,9 +122,12 @@ def score_tracks_kernel(query: torch.Tensor, prints: torch.Tensor,
     offsets = torch.empty((t_count,), dtype=torch.int32, device=prints.device)
     if t_count == 0:
         return scores, offsets
+    n_blocks = scan_geometry(n, l)[3]
+    keys = torch.empty((t_count, n_blocks), dtype=torch.int64, device=prints.device)
     _build.launch("score_tracks", "hpfw_score_tracks", prints.device,
                   query.data_ptr(), n, prints.data_ptr(), t_count, l,
-                  lengths.data_ptr(), scores.data_ptr(), offsets.data_ptr())
+                  lengths.data_ptr(), SCAN_LARGE_FROM, keys.data_ptr(), scores.data_ptr(),
+                  offsets.data_ptr())
     return scores, offsets
 
 

@@ -38,7 +38,8 @@ from ..api import FingerprintDB, _to_tensor_prints, default_device
 from ..config import HpfwConfig
 from ..ops import coarse as coarse_ops
 from ..ops.coarse_scan import (coarse_rescan, coarse_scan, coarse_scan_batch,
-                               coarse_scan_batch_packed, flat_width, pack_coarse_nibbles)
+                               coarse_scan_batch_packed, flat_width, flatten_coarse,
+                               pack_coarse_nibbles)
 from ..ops.fine import fine_rescan_batch, plane_pad
 from .stretch import print_variants, stretch_grid
 
@@ -48,17 +49,23 @@ _DERIVE_ELEMS = 1 << 27
 _KEY_SHIFT = 1 << 32
 
 
-def _pool_candidates(best_corr: torch.Tensor, pool: int) -> torch.Tensor:
+def _pool_candidates(best_corr: torch.Tensor, pool: int, rows: int | None = None,
+                     exact: bool = False) -> torch.Tensor:
     """EXACT top-`pool` track indices along the last axis, descending score
     and ascending index on ties, padded to a multiple of 8 by repeating the
     first candidate (the host ranking drops duplicates). Returns int64.
+    Like the reference's Pallas path it takes min(pool, T) rounded up to 8
+    distinct tracks where there are that many; exact takes min(pool, T), as
+    its XLA path does. rows: rank only the first rows tracks.
 
     torch.topk promises no order among equal values, so it ranks a unique
     composite key, score * 2^32 + (2^32 - 1 - index)."""
+    if rows is not None:
+        best_corr = best_corr[..., :rows]
     t = best_corr.shape[-1]
     k0 = max(1, min(pool, t))
     k = -(-k0 // 8) * 8
-    kk = min(k, t)
+    kk = k0 if exact else min(k, t)
     index = torch.arange(t, dtype=torch.int64, device=best_corr.device)
     key = best_corr.to(torch.int64) * _KEY_SHIFT + (_KEY_SHIFT - 1 - index)
     cand = torch.topk(key, kk, dim=-1).indices
@@ -132,7 +139,8 @@ def _coarse_best_phased(queries, db_c, *, stride, phases, kind, channels, lc_tru
 
 
 def _coarse_pool_twopass(queries, db_c, db_c1, *, stride, phases, phases1, prefilter,
-                         pool, kind, channels, channels1, lc_true, packed1):
+                         pool, kind, channels, channels1, lc_true, packed1, pool_rows=None,
+                         pool_exact=False):
     """Two-pass phased coarse stage: pass 1 sweeps the whole catalog with
     phases1 lanes a query on the (possibly channel-prefix, possibly
     nibble-packed: packed1) db_c1 and pools the top `prefilter` tracks per
@@ -145,7 +153,7 @@ def _coarse_pool_twopass(queries, db_c, db_c1, *, stride, phases, phases1, prefi
                                    kind=kind, channels=channels1, lc_true=lc_true,
                                    packed=packed1)
     m = min(prefilter, db_c.shape[0])
-    cand_m = _pool_candidates(best1, m).sort(dim=1).values               # (B, M8)
+    cand_m = _pool_candidates(best1, m, pool_rows, pool_exact).sort(dim=1).values  # (B, M8)
     qcs, rs = _phase_variants(queries, stride=stride, phases=phases, kind=kind,
                               channels=channels)                         # (B, P, Nc, C)
     best2, idx2 = coarse_rescan(qcs, db_c, cand_m.to(torch.int32), lc_true=lc_true)
@@ -155,20 +163,23 @@ def _coarse_pool_twopass(queries, db_c, db_c1, *, stride, phases, phases1, prefi
 
 
 def _two_stage(queries, prints, lengths, db_c, db_c1, *, stride, pool, fine_window,
-               lc_true, kind, channels, phases, phases1, prefilter, channels1, packed1):
+               lc_true, kind, channels, phases, phases1, prefilter, channels1, packed1,
+               pool_rows=None, pool_exact=False):
     """Batched two-stage match of B equal-length queries (B, N, 2) int32:
     (B, 3, K) int32 [scores, track index, offsets]. packed1: db_c1 is
-    nibble-packed (read by pass 1 only)."""
+    nibble-packed (read by pass 1 only); pool_rows, pool_exact: how the
+    first pool ranks (_pool_candidates)."""
     if phases > 1 and prefilter:
         cand, centers = _coarse_pool_twopass(
             queries, db_c, db_c1, stride=stride, phases=phases, phases1=phases1,
             prefilter=prefilter, pool=pool, kind=kind, channels=channels,
-            channels1=channels1, lc_true=lc_true, packed1=packed1)
+            channels1=channels1, lc_true=lc_true, packed1=packed1, pool_rows=pool_rows,
+            pool_exact=pool_exact)
     else:
         best, centers_all = _coarse_best_phased(
             queries, db_c, stride=stride, phases=phases, kind=kind, channels=channels,
             lc_true=lc_true)
-        cand = _pool_candidates(best, pool)
+        cand = _pool_candidates(best, pool, pool_rows, pool_exact)
         centers = centers_all.gather(1, cand)
     n = queries.shape[1]
     n_fine = 2 * fine_window + 1
@@ -192,6 +203,10 @@ class TwoStageDB:
     """
 
     _CACHE_VERSION = 1
+    # How the pool ranks: every row, in groups of 8 (the reference's Pallas
+    # layout), unless a loaded cache of its unpadded layouts says otherwise.
+    _pool_rows: int | None = None
+    _pool_exact = False
 
     def __init__(self, db: FingerprintDB, *, stride: int | None = None,
                  coarse_kind: str | None = None,
@@ -206,7 +221,7 @@ class TwoStageDB:
         cfg = db.cfg
         if mesh is not None:
             raise NotImplementedError(
-                "a sharded TwoStageDB is not ported yet (ROADMAP A12)")
+                "a sharded TwoStageDB is not ported yet (ROADMAP A7)")
         self.db = db
         self.stride = stride if stride is not None else cfg.db_downsample
         self.coarse_kind = coarse_kind if coarse_kind is not None else cfg.coarse_kind
@@ -321,25 +336,39 @@ class TwoStageDB:
     def load(cls, path: str, *,
              device: str | torch.device | None = None) -> "TwoStageDB":
         """Rebuild a TwoStageDB on device (default: the card when torch sees
-        one) from a save() directory of either package (the single-device Pallas layout), without re-deriving."""
+        one) from a save() directory of either package, without re-deriving.
+
+        Every single-device layout of the reference loads: flat coarse rows
+        and word planes (use_pallas_fine and use_pallas_coarse, what it
+        writes on a TPU and what save() writes), and its default elsewhere,
+        (T, lc, C) coarse prints beside word planes or beside a (T, L, 2)
+        prints array (use_pallas_fine=False), with the track axis unpadded.
+        Those coarse rows are flattened and the tracks padded to whole
+        8-track tiles as __init__ does, and the pool ranks only the real
+        tracks, as the unpadded reference does; without word planes it also
+        pools exactly min(pool, tracks) of them, as its lax.top_k does."""
         with open(os.path.join(path, "manifest.json")) as f:
             m = json.load(f)
         if m["format_version"] != cls._CACHE_VERSION:
             raise ValueError(f"unsupported two-stage cache version {m['format_version']}")
-        if m["mesh_size"] or not (m["use_pallas_fine"] and m["use_pallas_coarse"]):
+        if m["mesh_size"]:
             raise ValueError(
-                "only a single-device cache with flat coarse rows and word planes "
-                "(use_pallas_fine=True, no mesh) loads here; rebuild the cache")
+                f"the cache was built for a mesh of {m['mesh_size']} devices; the sharded "
+                "TwoStageDB is not ported yet (ROADMAP A7): rebuild the cache without a mesh")
 
         def grab(name):
             return np.load(os.path.join(path, name + ".npy"), mmap_mode="r")
 
         cfg = HpfwConfig.from_json(m["config_json"])
         lengths = np.array(grab("lengths"), dtype=np.int32)
-        t, l, lpad, n_real = lengths.shape[0], m["l_true"], m["lpad"], m["n_real"]
-        prints = np.empty((t, l, 2), np.uint32)
-        prints[..., 0] = grab("d0")[: t * lpad].reshape(t, lpad)[:, :l]
-        prints[..., 1] = grab("d1")[: t * lpad].reshape(t, lpad)[:, :l]
+        t, n_real = lengths.shape[0], m["n_real"]
+        if m["use_pallas_fine"]:
+            l, lpad = m["l_true"], m["lpad"]
+            prints = np.empty((t, l, 2), np.uint32)
+            prints[..., 0] = grab("d0")[: t * lpad].reshape(t, lpad)[:, :l]
+            prints[..., 1] = grab("d1")[: t * lpad].reshape(t, lpad)[:, :l]
+        else:
+            prints = np.array(grab("prints"), dtype=np.uint32)
         dev = torch.device(device) if device is not None else default_device()
         self = cls.__new__(cls)
         self.db = FingerprintDB(
@@ -357,12 +386,22 @@ class TwoStageDB:
         self.device = dev
         self.n_real = n_real
         self.lc_true = m["lc_true"]
-        self.prints = _to_tensor_prints(prints, dev)
-        self.lengths = torch.from_numpy(lengths).to(dev)
-        self.db_c = torch.from_numpy(np.array(grab("coarse"))).to(dev)
-        self.db_c1 = (torch.from_numpy(np.array(grab("coarse1"))).to(dev)
-                      if (self.prefilter_channels < self.coarse_channels
-                          or self.prefilter_pack4) else self.db_c)
+        prints = _to_tensor_prints(prints, dev)
+        lengths = torch.from_numpy(lengths).to(dev)
+        db_c = torch.from_numpy(np.array(grab("coarse"))).to(dev)
+        if m["use_pallas_coarse"]:
+            self.db_c = db_c
+            self.db_c1 = (torch.from_numpy(np.array(grab("coarse1"))).to(dev)
+                          if (self.prefilter_channels < self.coarse_channels
+                              or self.prefilter_pack4) else self.db_c)
+        else:
+            pad = -t % 8
+            prints = torch.cat([prints, prints.new_zeros((pad,) + prints.shape[1:])])
+            lengths = torch.cat([lengths, lengths.new_zeros(pad)])
+            db_c = flatten_coarse(db_c)
+            self.db_c = self.db_c1 = torch.cat([db_c, db_c.new_zeros((pad, db_c.shape[1]))])
+            self._pool_rows, self._pool_exact = n_real, not m["use_pallas_fine"]
+        self.prints, self.lengths = prints, lengths
         return self
 
     # -- matching --
@@ -414,7 +453,8 @@ class TwoStageDB:
                           lc_true=self.lc_true, kind=self.coarse_kind,
                           channels=self.coarse_channels, phases=ph, phases1=p1,
                           prefilter=pf, channels1=c1,
-                          packed1=bool(pf) and self.prefilter_pack4)
+                          packed1=bool(pf) and self.prefilter_pack4,
+                          pool_rows=self._pool_rows, pool_exact=self._pool_exact)
 
     def dispatch(self, query_dev: torch.Tensor, **kw) -> torch.Tensor:
         """One query (N, 2) int32: the (3, K) tensor of dispatch_batch."""

@@ -112,7 +112,9 @@ def library() -> ctypes.CDLL:
                                      ptr, ptr, ptr]
     lib.hpfw_fingerprint_scratch.argtypes = [i32, i32, i32]
     lib.hpfw_fingerprint_scratch.restype = i64
-    lib.hpfw_score_tracks.argtypes = [ptr, i32, ptr, i32, i32, ptr, ptr, ptr, ptr]
+    lib.hpfw_score_tracks.argtypes = [ptr, i32, ptr, i32, i32, ptr, i32, ptr, ptr, ptr, ptr]
+    lib.hpfw_score_tracks_geometry.argtypes = [i32, i32, i32, ptr, ptr, ptr]
+    lib.hpfw_score_tracks_geometry.restype = i64
     lib.hpfw_coarse_scan.argtypes = [ptr, i32, i32, i32, i32, ptr, i64, i32, ptr, i32,
                                      i32, i32, i32, ptr, ptr, ptr]
     lib.hpfw_fine_rescan.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr, ptr, i32,

@@ -11,9 +11,11 @@ Counterpart of hpfw_tpu/streaming/session.py:
   scale) after every print chunk, integrates each window's top hit into a
   decayed vote tally, and records per-step latencies for p50/p99.
 
-Only the rigid path is ported: the tempo and pitch scans (spec_scan, or a
-config with stretch_span > 0 or pitch_span_bins > 0) need api.scan_from_spec
-and scan_hypotheses, which are not ported yet (ROADMAP A8), and raise.
+The spec-level tempo and pitch scan (spec_scan, on by default when the
+config sets stretch_span > 0 or pitch_span_bins > 0) needs api.scan_from_spec
+and scan_hypotheses, which are not ported yet (ROADMAP A3), and raises. With
+spec_scan=False the session matches the plain ring, as the reference does:
+a TwoStageDB then runs its print-level tempo scan (stretch_span).
 """
 
 from __future__ import annotations
@@ -136,7 +138,7 @@ def latency_percentiles(**series) -> dict:
 
 
 class StreamingSession:
-    """Continuous live-song ID over an audio stream, on the rigid path.
+    """Continuous live-song ID over an audio stream, without the spec scan.
 
     feed() audio in arbitrary-size chunks; after each print-chunk boundary
     the sliding query is matched against the database and the running best
@@ -155,10 +157,18 @@ class StreamingSession:
                  spec_scan: bool | None = None):
         self.db = db                      # FingerprintDB or TwoStageDB
         self.cfg = cfg if cfg is not None else getattr(db, "cfg", None) or db.db.cfg
-        if spec_scan or self.cfg.stretch_span > 0.0 or self.cfg.pitch_span_bins > 0:
+        # As the reference: the spec-level scan is on by default when the
+        # config asks for a tempo or pitch scan.
+        scan_axes = self.cfg.stretch_span > 0.0 or self.cfg.pitch_span_bins > 0
+        if spec_scan is None:
+            spec_scan = scan_axes
+        if spec_scan and not scan_axes:
+            raise ValueError("spec_scan=True needs cfg.stretch_span > 0 "
+                             "and/or cfg.pitch_span_bins > 0")
+        if spec_scan:
             raise NotImplementedError(
-                "the streaming tempo/pitch scan (spec_scan, stretch_span, "
-                "pitch_span_bins) needs api.scan_from_spec, not ported yet (ROADMAP A8)")
+                "the streaming spec-level tempo/pitch scan needs api.scan_from_spec, "
+                "not ported yet (ROADMAP A3); spec_scan=False matches the plain ring")
         self.extractor = ChunkedExtractor(filters, self.cfg, chunk_prints, device=db.device)
         self.query_prints = query_prints
         self.match_every = match_every

@@ -196,24 +196,90 @@ def _random_db(rng, lengths, l_pad=None):
     return prints, np.array(lengths, dtype=np.int32)
 
 
-@pytest.mark.parametrize("n_query", [0, 1, 37, 300])
-def test_scan_kernel_matches_plain(dev, n_query):
+@pytest.mark.parametrize("n,l", [(380, 811), (380, 7701), (0, 1), (2000, 3000),
+                                 (29056, 30000), (10_000, 200_000)])
+def test_scan_geometry_fits_shared_memory(dev, n, l):
+    """K3's launch as csrc/match.cu decides it: the large tile from
+    SCAN_LARGE_FROM offsets a track, two blocks of the small tile an SM, the
+    whole query resident on the main path's shapes, else a chunk that fits."""
+    tile, cpos, smem, n_blocks = matcher.scan_geometry(n, l)
+    assert tile == int(l - n + 1 >= matcher.SCAN_LARGE_FROM)
+    assert n_blocks == -(-(l - n + 1) // (512 if tile == 0 else 2048))
+    assert 1 <= cpos <= n + 31 and smem <= (112 if tile == 0 else 226) * 1024
+    if (n, l) in ((380, 811), (380, 7701), (0, 1)):
+        assert cpos == n + 31
+    if n >= 10_000:                     # streamed in chunks
+        assert cpos < n + 31
+    with pytest.raises(ValueError):
+        matcher.scan_geometry(n + 1, n)
+
+
+def _force_tile(monkeypatch, tile):
+    """K3's small tile (0), large tile (1) or its own choice (None)."""
+    if tile is not None:
+        monkeypatch.setattr(matcher, "SCAN_LARGE_FROM", 0 if tile else 2 ** 31 - 1)
+
+
+@pytest.mark.parametrize("n_query", [0, 1, 37, 300, 380, 2000, 29056])
+def test_scan_kernel_matches_plain(dev, n_query, monkeypatch):
+    """K3 with either tile (and the default) equal to the plain scan: tracks
+    of 0, 1, N - 1, N and N + 1 prints among longer ones, random prints past
+    every length, a tie; 29,056 prints is the longest query K3 took before it
+    streamed the query (two chunks of the small tile already at 2,000)."""
     rng = np.random.default_rng(n_query)
-    lengths = [900, 851, 15, 0, 300, 900, 123, 899]
-    prints, lens = _random_db(rng, lengths, l_pad=max(900, n_query))
+    l = max(900, n_query + 1)
+    lengths = [900, 851, 15, 0, 300, 900, 123, 899, 1, max(n_query - 1, 0), n_query,
+               n_query + 1]
+    prints = rng.integers(0, 2 ** 32, (len(lengths), l, 2), dtype=np.uint32)
+    lens = np.array(lengths, np.int32)
     q = rng.integers(0, 2 ** 32, (n_query, 2), dtype=np.uint32)
-    if n_query:
+    if 0 < n_query <= 300:
         prints[1, 40:40 + n_query] = q           # planted
         prints[5, 10:10 + n_query] = q           # tie: first offset wins
         prints[5, 500:500 + n_query] = q
     args = (torch.from_numpy(q.view(np.int32)).to(dev),
             torch.from_numpy(prints.view(np.int32)).to(dev),
             torch.from_numpy(lens).to(dev))
+    s_r, o_r = matcher.score_tracks_ref(*args)
+    for tile in (None, 0, 1):
+        _force_tile(monkeypatch, tile)
+        s_k, o_k = matcher.score_tracks_kernel(*args)
+        assert torch.equal(s_k, s_r) and torch.equal(o_k, o_r), tile
+    if 0 < n_query <= 300:
+        assert int(s_r[5]) == 64 * n_query and int(o_r[5]) == 10
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_scan_kernel_ties_and_waves(dev, tile, monkeypatch):
+    """1,100 tracks x 3,000 prints against a 380-print query (several waves
+    of blocks, several blocks a track): ties inside a column, across a
+    column (16 MT offsets), across a small and a large block (512 and 2,048
+    offsets), each won by the first offset, and random prints past short
+    lengths; exactly the plain scan."""
+    rng = np.random.default_rng(11 + tile)
+    t, l, n = 1100, 3000, 380
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    lens = np.full(t, l, np.int32)
+    lens[7::5] = rng.integers(0, l, len(lens[7::5]))
+    # A query of period 10 planted as a longer run: equal peaks at offsets 10
+    # and 20 of track 0, inside one column.
+    run = np.tile(rng.integers(0, 2 ** 32, (10, 2), dtype=np.uint32), (n // 10 + 2, 1))
+    q = np.ascontiguousarray(run[:n])
+    prints[0, 10:20 + n] = run[:n + 10]
+    ties = {0: (10, 20), 1: (31, 31 + n), 2: (63, 63 + n), 3: (511, 511 + n),
+            4: (2047, 2047 + n)}
+    for track, offs in list(ties.items())[1:]:
+        for o in offs:
+            prints[track, o:o + n] = q
+    args = (torch.from_numpy(q.view(np.int32)).to(dev),
+            torch.from_numpy(prints.view(np.int32)).to(dev),
+            torch.from_numpy(lens).to(dev))
+    _force_tile(monkeypatch, tile)
     s_k, o_k = matcher.score_tracks_kernel(*args)
     s_r, o_r = matcher.score_tracks_ref(*args)
     assert torch.equal(s_k, s_r) and torch.equal(o_k, o_r)
-    if n_query:
-        assert int(s_k[5]) == 64 * n_query and int(o_k[5]) == 10
+    for track, offs in ties.items():
+        assert (int(s_k[track]), int(o_k[track])) == (64 * n, offs[0])
 
 
 def test_api_on_card_matches_cpu_and_counts_launches(dev):

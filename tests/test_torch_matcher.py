@@ -71,6 +71,118 @@ def test_score_tracks_exact(name):
         assert s[0] == 64 * 10 and o[0] == 50
 
 
+_MASK32 = 0xFFFFFFFF
+
+
+def _pm1(words: torch.Tensor) -> torch.Tensor:
+    """(..., 2) int32 words -> (..., 64) int64 +-1 channels, bit c % 32 of
+    word c // 32 as channel c."""
+    bits = (words[..., None].to(torch.int64) >> torch.arange(32)) & 1
+    return (2 * bits - 1).reshape(*words.shape[:-1], 64)
+
+
+def _k3_tiled(query, prints, lengths, *, mt, nt, cpos):
+    """K3's formulation in plain torch, item by item and chunk by chunk: an
+    item (track, offset block) scores the M x NCOL offsets o0 + k M + r
+    (M = 16 mt, NCOL = 8 nt) as C[r, k] = sum_{p, c} q[p - r][c] *
+    d01[o0 + k M + p][c] over positions p < N + M - 1, taken in chunks of
+    cpos, with the query +-1 (0 outside [0, N)) and the track's bits 0/1 (0
+    at or past len); sim = C + 64 kcut - popcount(q[0 : kcut]) with kcut =
+    min(len, N). Each item writes its own key, the best (sim * 2^32 + 2^32 -
+    1 - o) over its offsets o <= o_max, or 0 when it has none to visit, into
+    a (T, items a track) buffer, and each track's result is the maximum of
+    its row, split into (score, offset), as merge_keys does."""
+    m, ncol = 16 * mt, 8 * nt
+    ob = m * ncol
+    t_count, l, _ = prints.shape
+    n = query.shape[0]
+    n_pos = n + m - 1
+    qz = torch.cat([_pm1(query), torch.zeros((1, 64), dtype=torch.int64)])  # row n: zeros
+    r = torch.arange(m)
+    n_blocks = -(-(l - n + 1) // ob)
+    keys = torch.full((t_count, n_blocks), -1, dtype=torch.int64)   # every item writes its key
+    for t in range(t_count):
+        ln = min(max(int(lengths[t]), 0), l)
+        o_max, kcut = min(max(ln - n, 0), l - n), min(ln, n)
+        pc = int((qz[:kcut] > 0).sum())
+        d01 = torch.cat([(_pm1(prints[t]) > 0).to(torch.int64),
+                         torch.zeros((1, 64), dtype=torch.int64)])                  # row l: zeros
+        for blk in range(n_blocks):
+            o0 = blk * ob
+            if o0 > o_max:
+                keys[t, blk] = 0                                      # skipped
+                continue
+            c = torch.zeros((m, ncol), dtype=torch.int64)
+            for p0 in range(0, n_pos, cpos):
+                p = torch.arange(p0, min(p0 + cpos, n_pos))
+                j = p[None, :] - r[:, None]                                   # (M, cnt)
+                a = qz[torch.where((j >= 0) & (j < n), j, n)]                 # (M, cnt, 64)
+                pos = o0 + torch.arange(ncol)[:, None] * m + p[None, :]       # (NCOL, cnt)
+                b = d01[torch.where(pos < ln, pos, l)]                        # (NCOL, cnt, 64)
+                c += torch.einsum("rpc,kpc->rk", a, b)
+            o = o0 + torch.arange(ncol)[None, :] * m + r[:, None]             # (M, NCOL)
+            key = (c + 64 * kcut - pc) * 2 ** 32 + (2 ** 32 - 1 - o)
+            keys[t, blk] = key[o <= o_max].max()
+    assert bool((keys >= 0).all())
+    best = keys.max(dim=1).values
+    return (best >> 32).to(torch.int32), (2 ** 32 - 1 - (best & _MASK32)).to(torch.int32)
+
+
+# (mt, nt, cpos): K3's two tiles with the whole query resident, and small
+# tiles with short chunks, so that several blocks and chunks run.
+TILINGS = [(2, 2, 10_000), (2, 8, 10_000), (1, 1, 24), (1, 2, 7), (2, 1, 40)]
+
+
+@pytest.mark.parametrize("mt,nt,cpos", TILINGS)
+@pytest.mark.parametrize("name", ["random_lengths", "short_track_planted",
+                                  "many_offsets", "ties_to_first_offset"])
+def test_k3_tiled_formulation_exact(name, mt, nt, cpos):
+    """K3's tiled +-1 / 0-1 GEMM with the cross-block key merge equals the
+    plain scan, the oracle and the Pallas kernel (interpret mode) on the
+    four cases of tests/test_pallas_match.py."""
+    q, prints, lens = _case(name)
+    got = _k3_tiled(_t(q), _t(prints), torch.from_numpy(lens), mt=mt, nt=nt, cpos=cpos)
+    want = matcher.score_tracks_ref(_t(q), _t(prints), torch.from_numpy(lens))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    oracle_want = [oracle.match_track(q, prints[i, :lens[i]]) for i in range(len(lens))]
+    np.testing.assert_array_equal(got[0].numpy(), [w[0] for w in oracle_want])
+    np.testing.assert_array_equal(got[1].numpy(), [w[1] for w in oracle_want])
+    s_p, o_p = pallas_score_tracks(jnp.asarray(q), jnp.asarray(prints), jnp.asarray(lens),
+                                   interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(s_p))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(o_p))
+
+
+@pytest.mark.parametrize("mt,nt,cpos", TILINGS[2:])
+@pytest.mark.parametrize("n", [0, 1, 37, 90])
+def test_k3_tiled_edges(n, mt, nt, cpos):
+    """Ties on either side of a column (tile) boundary and of a block
+    boundary, tracks shorter than the query and of length 0, nonzero
+    garbage past every length, and queries longer than one chunk."""
+    rng = np.random.default_rng(n + 7 * mt + nt)
+    m, ob = 16 * mt, 16 * mt * 8 * nt
+    l = max(3 * ob, n + 2 * ob)
+    prints = rng.integers(0, 2 ** 32, (8, l, 2), dtype=np.uint32)    # garbage everywhere
+    lens = np.array([l, l, n // 2, 0, n, n + 1, l - 3, max(n - 1, 0)], np.int32)
+    q = rng.integers(0, 2 ** 32, (n, 2), dtype=np.uint32)
+    if n:
+        for o in (m - 1, m - 1 + n):            # a tie across a column boundary
+            prints[0, o:o + n] = q
+        for o in (ob - 1, ob - 1 + n):          # a tie across a block boundary
+            prints[1, o:o + n] = q
+        prints[6, l - 3 - n:l - 3] = q          # at the last visited offset
+    args = (_t(q), _t(prints), torch.from_numpy(lens))
+    got = _k3_tiled(*args, mt=mt, nt=nt, cpos=cpos)
+    want = matcher.score_tracks_ref(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    oracle_want = [oracle.match_track(q, prints[i, :lens[i]]) for i in range(len(lens))]
+    np.testing.assert_array_equal(got[0].numpy(), [w[0] for w in oracle_want])
+    np.testing.assert_array_equal(got[1].numpy(), [w[1] for w in oracle_want])
+    if n:
+        assert [int(x) for x in got[1][[0, 1, 6]]] == [m - 1, ob - 1, l - 3 - n]
+        assert all(int(x) == 64 * n for x in got[0][[0, 1, 6]])
+
+
 def test_score_tracks_blocks_do_not_change_result(monkeypatch):
     q, prints, lens = _case("many_offsets")
     want = matcher.score_tracks_ref(_t(q), _t(prints), torch.from_numpy(lens))

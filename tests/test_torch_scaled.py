@@ -216,6 +216,62 @@ def test_track_axis_padded_to_whole_tiles(tmp_path):
             _same(other_ts.match(q, top_k=5, pool=8, phases=2), want)
 
 
+@pytest.mark.parametrize("pool", [8, 12, 64])
+@pytest.mark.parametrize("layout", ["xla", "fine_only"])
+@pytest.mark.parametrize("name", ["phases_1", "query_phases_4"])
+def test_reference_default_caches_load(data, tmp_path, name, layout, pool):
+    """The caches hpfw_tpu writes on any backend but a TPU: (T, lc, C) coarse
+    prints beside a (T, L, 2) prints array (its default there) or beside
+    word planes (use_pallas_fine=True, use_pallas_coarse=False), for 45
+    tracks (not a multiple of 8). The port flattens and pads them and
+    answers as the reference does on them; the reference's match_batch
+    needs word planes, so without them each query's match is the answer."""
+    prints, lengths, qs = data[0][:45], data[1][:45], data[2]
+    kw = CONFIGS[name][0]
+    jcfg, pcfg = _cfgs(name)
+    jdb = jax_api.FingerprintDB(jcfg, np.zeros((jcfg.context_dim, 64), np.float32),
+                                [str(i) for i in range(45)], prints, lengths)
+    fine = layout == "fine_only"
+    j = jax_scaled.TwoStageDB(jdb, stride=STRIDE, use_pallas_fine=fine,
+                              use_pallas_coarse=False, pallas_interpret=True, **kw)
+    path = str(tmp_path / "cache")
+    j.save(path)
+    p = TwoStageDB.load(path, device="cpu")
+    assert p.db_c.shape == (48, p.db_c.shape[1]) and p.n_real == 45 and p.db_c1 is p.db_c
+    mkw = dict(top_k=10, pool=pool, phases=j.query_phases)
+    want = [j.match(q, **mkw) for q in qs]
+    for q, w in zip(qs, want):
+        _same(p.match(q, **mkw), w)
+    if fine:
+        want = j.match_batch(qs, **mkw)
+    for got, w in zip(p.match_batch(qs, **mkw), want):
+        _same(got, w)
+
+
+def test_reference_xla_cache_pools_real_tracks_only(tmp_path):
+    """Tracks whose coarse peaks are all negative (all-ones prints against a
+    query of mostly clear bits): the zero rows that pad 13 tracks to 16
+    would outrank them in the pool; loaded from the reference's unpadded
+    cache, the port pools real tracks only, as the reference does."""
+    rng = np.random.default_rng(12)
+    q = (rng.integers(0, 2 ** 32, (NQ, 2), dtype=np.uint32)
+         & rng.integers(0, 2 ** 32, (NQ, 2), dtype=np.uint32)
+         & rng.integers(0, 2 ** 32, (NQ, 2), dtype=np.uint32))
+    prints = np.full((13, 120, 2), 0xFFFFFFFF, np.uint32)
+    prints[0] = rng.integers(0, 2 ** 32, (120, 2), dtype=np.uint32)
+    prints[0, 24:24 + NQ] = q
+    jcfg = JaxConfig(**SMALL)
+    jdb = jax_api.FingerprintDB(jcfg, np.zeros((jcfg.context_dim, 64), np.float32),
+                                [f"t{i}" for i in range(13)], prints, np.full(13, 120, np.int32))
+    j = jax_scaled.TwoStageDB(jdb)
+    j.save(str(tmp_path / "c"))
+    p = TwoStageDB.load(str(tmp_path / "c"), device="cpu")
+    want = j.match(q, top_k=10, pool=8)
+    assert want[0][:8] == ["t0"] + [f"t{i}" for i in range(1, 8)]
+    _same(p.match(q, top_k=10, pool=8), want)
+    _same(p.match_batch(q[None], top_k=10, pool=8)[0], want)
+
+
 @pytest.mark.parametrize("make,exc,match", [
     (lambda db: TwoStageDB(db, stride=8).match(np.zeros((8 * 26, 2), np.uint32)),
      ValueError, "longer than"),
@@ -226,7 +282,7 @@ def test_track_axis_padded_to_whole_tiles(tmp_path):
         np.zeros((16384, 2), np.uint32)), ValueError, "2\\^24"),
     (lambda db: TwoStageDB(db, prefilter_pack4=True, coarse_kind="sum"), ValueError,
      "nibble"),
-    (lambda db: TwoStageDB(db, mesh=object()), NotImplementedError, "A12"),
+    (lambda db: TwoStageDB(db, mesh=object()), NotImplementedError, "A7"),
 ], ids=["overlong_query", "phases_divide", "prefilter_channels", "sum_bound",
         "pack4", "mesh"])
 def test_errors(make, exc, match):

@@ -142,15 +142,50 @@ def test_session_equals_reference_per_feed(cfg, catalog, kind):
     assert np.isfinite(stats["match_p50_ms"]) and np.isfinite(stats["step_p99_ms"])
 
 
-@pytest.mark.parametrize("make", [
-    lambda db, f, c: StreamingSession(db, f, c, spec_scan=True),
-    lambda db, f, c: StreamingSession(db, f, dataclasses.replace(c, stretch_span=0.02)),
-    lambda db, f, c: StreamingSession(db, f, dataclasses.replace(c, pitch_span_bins=1)),
-], ids=["spec_scan", "stretch_span", "pitch_span_bins"])
-def test_session_scan_not_ported(cfg, catalog, make):
+@pytest.mark.parametrize("make,exc,match", [
+    (lambda db, f, c: StreamingSession(db, f, dataclasses.replace(c, stretch_span=0.02),
+                                       spec_scan=True), NotImplementedError, "A3"),
+    (lambda db, f, c: StreamingSession(db, f, dataclasses.replace(c, stretch_span=0.02)),
+     NotImplementedError, "A3"),
+    (lambda db, f, c: StreamingSession(db, f, dataclasses.replace(c, pitch_span_bins=1)),
+     NotImplementedError, "A3"),
+    (lambda db, f, c: StreamingSession(db, f, c, spec_scan=True), ValueError, "needs cfg"),
+], ids=["spec_scan", "stretch_span", "pitch_span_bins", "spec_scan_without_span"])
+def test_session_scan_not_ported(cfg, catalog, make, exc, match):
+    """The spec-level scan (asked for, or on by default with a span) raises
+    until it is ported; spec_scan=True with no span raises the reference's
+    ValueError."""
     _, filters, dbs = catalog
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(exc, match=match):
         make(dbs["dense"][1], filters, _port(cfg))
+    if exc is ValueError:
+        with pytest.raises(ValueError, match=match):
+            jax_session.StreamingSession(dbs["dense"][0], filters, cfg, spec_scan=True)
+
+
+@pytest.mark.parametrize("kind", ["dense", "two_stage"])
+def test_session_without_spec_scan_equals_reference(cfg, catalog, kind):
+    """spec_scan=False with stretch_span=0.02: the session matches the plain
+    ring, and a two-stage DB runs its print-level tempo scan, feed by feed as
+    hpfw_tpu's session does."""
+    tracks, filters, dbs = catalog
+    jdb, _ = dbs["dense"]
+    span = dataclasses.replace(cfg, stretch_span=0.02)
+    jspan = jax_api.FingerprintDB(span, filters, jdb.track_ids, jdb.prints, jdb.lengths)
+    pspan = api.FingerprintDB(_port(span), filters, jdb.track_ids, jdb.prints, jdb.lengths)
+    if kind == "two_stage":
+        jspan = jax_scaled.TwoStageDB(jspan, stride=4, use_pallas_fine=True, coarse_tile=8,
+                                      pallas_interpret=True)
+        pspan = TwoStageDB(pspan, stride=4)
+    live = synth.make_query(tracks[3], 0.4, 3.0, cfg, noise_db=-15.0, seed=8)
+    ours = StreamingSession(pspan, filters, _port(span), query_prints=64, chunk_prints=16,
+                            spec_scan=False)
+    ref = jax_session.StreamingSession(jspan, filters, span, query_prints=64, chunk_prints=16,
+                                       spec_scan=False)
+    for c in _chunks(live, cfg.sample_rate // 4):
+        _equal_hyp(ours.feed(c), ref.feed(c))
+        assert ours.last_match == ref.last_match
+    assert ours.current_best.track_id == "3"
 
 
 def _noisy(tracks, cfg, rng, t):
