@@ -46,10 +46,34 @@ then, on the catalog_scale() catalog, whose rows also hold 16 synthetic
      share and recall at 100-800 offered q/s, and the knee;
  16. StreamingPool at B = 8 and 16 (benchmarks/config3_pool.py's protocol):
      every stream identifies its planted track; tick ms and streams a card;
- 17. StreamingSession (rigid) on one 30 s stream; match and step p50/p99.
-Each path (phases 4, 10, 14, 15, 16, 17) runs with the launch counters set
-to 0 just before it and read just after; comparison and timing launches are
-not counted. Kernel times are CUDA events over launches queued behind a
+ 17. StreamingSession (rigid) on one 30 s stream; match and step p50/p99;
+ 18. filter learning at BASELINE config 5's sizes (12 synthetic 30 s tracks):
+     api.learn_filters on the card (12 K1 launches) against the same corpus
+     through the plain versions on the card; X^T X to rtol 1e-4, the counts
+     equal, every filter's |cos| > 0.98, and finalize_filters of the card's
+     state equal to learn_filters' result; seconds a track, the X^T X GEMM's
+     time and bound;
+ 19. the rendition scan on phase 10's catalog_scale() TwoStageDB: 4 in-tempo
+     noisy 10 s excerpts of stream tracks and 4 renditions pitched +0.5
+     semitone (2.9% fast) through match_scan_escalating(span=0.03,
+     pitch_span_bins=1), V = 21: the renditions alone escalate, all 8 rank
+     their tracks first, stats equal the same call through the plain
+     extraction on the card (results too where the query's prints do), the
+     identity row equals plain extraction and every variant's K2 prints are
+     within K2's gate of the plain encoder; in an escalated match_batch every
+     K4 and K5 call equals its plain version on the same inputs, and the
+     dispatch through the plain K4 and K5 gives the same results; scan
+     extraction and escalated match_batch times;
+ 20. known-artist mode at config 5's artist_eval sizes (6 artists x 8 tracks
+     x 30 s): ArtistDB.build on the card, known- and unknown-artist matches
+     of noisy excerpts, dense and scaled=True, each ranking its track first
+     with equal top hits, every K3, K4 and K5 call of them equal to its plain
+     version on the same inputs; fingerprint_multi equal to per-bank
+     fingerprint and within K2's gate of the plain versions; build seconds
+     and fingerprint_multi time at A = 6.
+Each path (phases 4, 10, 14-20) runs with the launch counters set to 0 just
+before it and read just after; comparison and timing launches are not
+counted, and a plain-version run checks that K1 and K2 did not launch. Kernel times are CUDA events over launches queued behind a
 spin kernel (cuda_ms). The last two lines are a JSON object of per-kernel
 results (time, plain and library time, bound) and {"ok": true, "device":
 {...}}.
@@ -58,6 +82,7 @@ Imports nothing of jax or hpfw_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -91,14 +116,23 @@ POOL_SIZES, CHUNK_PRINTS, QUERY_PRINTS = (8, 16), 32, 128
 POOL_WARM_TICKS, POOL_TICKS = QUERY_PRINTS // CHUNK_PRINTS + 3, 30
 WINDOW_OFFSETS = (0, 1, 37, 113, 4000)      # K2's 32-print windows cut from the 240 s spectrum
 SESSION_SECONDS = 30.0
+# BASELINE config 5 (benchmarks/config5_learning.py): n_train tracks of
+# track_seconds for learning (:91), artist_eval's catalogs (:44), 8 s queries.
+LEARN_TRACKS, LEARN_SECONDS = 12, 30.0
+ARTISTS, ARTIST_TRACKS, ARTIST_SECONDS, ARTIST_QUERY_SECONDS = 6, 8, 30.0, 8.0
+# The rendition scan: V = 7 tempo factors x 3 bin rolls = 21 hypotheses.
+SCAN_SPAN, SCAN_PITCH_BINS = 0.03, 1
+SCAN_IN_TEMPO, SCAN_RENDITIONS, SCAN_SECONDS, RENDITION_SEMITONES = 4, 4, 10.0, 0.5
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, dense
 # rates at the full 700 W): bytes over the memory rate, operations over the
 # rate of the unit the TPU kernel's work maps to. int32 is 64 INT32 lanes an
 # SM (Hopper white paper) x 132 SMs x 1.98 GHz, the clock behind the data
-# sheet's 67 TFLOP/s float32.
+# sheet's 67 TFLOP/s float32, the rate of float32 products outside the tensor
+# cores (TF32 off).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8_tensor": 1979e12, "bf16_tensor": 989e12, "int32": 132 * 64 * 1.98e9}
+PEAK_OPS = {"int8_tensor": 1979e12, "bf16_tensor": 989e12, "int32": 132 * 64 * 1.98e9,
+            "fp32": 67e12}
 # The TPU's CQT and encoder GEMMs run six bf16 products (an X6 split of each
 # float32 operand, pallas_frontend.py:81-83, pallas_fingerprint.py).
 X6_PASSES = 6
@@ -197,6 +231,80 @@ def cuda_ms(fn, min_total_ms: float = 200.0, max_reps: int = 50) -> float:
 def differing_bits(a: torch.Tensor, b: torch.Tensor) -> int:
     x = (a ^ b).cpu().numpy().view(np.uint32)
     return int(np.bitwise_count(x).sum())
+
+
+def k2_gate(prints: torch.Tensor) -> int:
+    """K2's gate: the differing bits allowed against its plain version."""
+    return max(2, prints.numel() * 32 // 10000)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route every CQT and encoder call through the plain versions (on the
+    card too). Fails if K1 or K2 launches meanwhile."""
+    from unittest import mock
+
+    from hpfw_tpu_torch.ops import _build, frontend
+    from hpfw_tpu_torch.ops import fingerprint as fp_ops
+    before = (_build.LAUNCHES["cqt"], _build.LAUNCHES["fingerprint"])
+    with mock.patch.object(frontend, "cqt_from_frames", frontend.cqt_from_frames_ref), \
+            mock.patch.object(fp_ops, "fingerprint_from_spec", fp_ops.fingerprint_from_spec_ref):
+        yield
+    check((_build.LAUNCHES["cqt"], _build.LAUNCHES["fingerprint"]) == before,
+          "K1 or K2 launched under the plain versions")
+
+
+def matcher_routes() -> list:
+    """K3, K4 and K5 as the matchers call them: (module, attribute, launch
+    counter, plain version)."""
+    from hpfw_tpu_torch.match import matcher, scaled
+    from hpfw_tpu_torch.ops import coarse_scan, fine
+    return [(matcher, "score_tracks", "score_tracks", matcher.score_tracks_ref),
+            (scaled, "coarse_scan", "coarse_scan", coarse_scan.coarse_scan_ref),
+            (scaled, "coarse_scan_batch", "coarse_scan_batch", coarse_scan.coarse_scan_batch_ref),
+            (scaled, "coarse_scan_batch_packed", "coarse_scan_batch_packed",
+             coarse_scan.coarse_scan_batch_packed_ref),
+            (scaled, "coarse_rescan", "coarse_rescan", coarse_scan.coarse_rescan_ref),
+            (scaled, "fine_rescan_batch", "fine_rescan", fine.fine_rescan_ref)]
+
+
+@contextlib.contextmanager
+def plain_matcher():
+    """Route K3, K4 and K5 through their plain versions (on the card too).
+    Fails if one of them launches meanwhile."""
+    from unittest import mock
+
+    from hpfw_tpu_torch.ops import _build
+    routes = matcher_routes()
+    before = [_build.LAUNCHES[counter] for _, _, counter, _ in routes]
+    with contextlib.ExitStack() as stack:
+        for mod, attr, _, ref in routes:
+            stack.enter_context(mock.patch.object(mod, attr, ref))
+        yield
+    check([_build.LAUNCHES[counter] for _, _, counter, _ in routes] == before,
+          "K3, K4 or K5 launched under the plain versions")
+
+
+@contextlib.contextmanager
+def matcher_held_to_plain(held: dict):
+    """Record every K3, K4 and K5 call made meanwhile, then run each one's
+    plain version on the same inputs: fails unless every output is equal.
+    held gets {launch counter: [the shape of each call's query input]}."""
+    from unittest import mock
+    calls = []
+    with contextlib.ExitStack() as stack:
+        for mod, attr, counter, ref in matcher_routes():
+            def spy(*args, _real=getattr(mod, attr), _counter=counter, _ref=ref, **kw):
+                out = _real(*args, **kw)
+                calls.append((_counter, _ref, args, kw, out))
+                return out
+            stack.enter_context(mock.patch.object(mod, attr, spy))
+        yield
+    for counter, ref, args, kw, out in calls:
+        want = ref(*args, **kw)
+        check(all(torch.equal(o, w) for o, w in zip(out, want)),
+              f"{counter} on a {tuple(args[0].shape)} query: differs from its plain version")
+        held.setdefault(counter, []).append(tuple(args[0].shape))
 
 
 def phase_device() -> None:
@@ -572,9 +680,10 @@ def timed_pair(kern, plain) -> tuple[float, float]:
 
 
 def run_catalog(dev: torch.device) -> list[dict]:
-    """Phases 8-17: BASELINE config 4 through TwoStageDB, under HpfwConfig()
+    """Phases 8-20: BASELINE config 4 through TwoStageDB, under HpfwConfig()
     and HpfwConfig.catalog_scale(), then the packed pass 1, the server and
-    the streaming surfaces on the catalog_scale() catalog. Returns the
+    the streaming surfaces on the catalog_scale() catalog, filter learning,
+    the rendition scan on that catalog and known-artist mode. Returns the
     per-kernel results of K4 (int8 and packed), K5 and the probe."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
@@ -779,6 +888,9 @@ def run_catalog(dev: torch.device) -> list[dict]:
     ts_p, packed_kernels = run_packed(ts, qs, qs_np, want, single, batched)
     kernels.update(packed_kernels)
     run_serving(ts_p, filters_np, qs_np, truth, stream_pcm, stream_rows)
+    run_learning(dev)
+    run_renditions(ts, filters_np, stream_pcm, stream_rows)
+    run_artists(dev)
     source = {"fine_rescan": "fine.cu", "row_sum": "probe.cu"}
     replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
                 "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
@@ -1093,6 +1205,310 @@ def run_serving(ts, filters_np, qs_np, truth, stream_pcm, stream_rows) -> None:
         f"{st['n_matches']} matches, match p50 {st['match_p50_ms']:.3f} ms p99 "
         f"{st['match_p99_ms']:.3f} ms, step p50 {st['step_p50_ms']:.3f} ms p99 "
         f"{st['step_p99_ms']:.3f} ms; launches {counts}")
+
+
+def run_learning(dev: torch.device) -> None:
+    """Phase 18: filter learning at BASELINE config 5's sizes, on the card
+    and through the plain versions on the card."""
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.io import synth
+    from hpfw_tpu_torch.learn import pca
+    from hpfw_tpu_torch.ops import frontend
+    from hpfw_tpu_torch.ops.dot import precise_matmul
+    from hpfw_tpu_torch.ops.fingerprint import context_matrix
+
+    cfg = HpfwConfig()
+    t0 = time.perf_counter()
+    corpus = synth.synth_catalog(LEARN_TRACKS, LEARN_SECONDS, cfg)
+    log(f"  synthesized {LEARN_TRACKS} x {LEARN_SECONDS:.0f} s in "
+        f"{time.perf_counter() - t0:.1f} s")
+    start_path()
+    t0 = time.perf_counter()
+    learned = api.learn_filters(corpus, cfg, device=dev)
+    learn_s = time.perf_counter() - t0
+    counts = end_path()
+    check(counts == {"cqt": LEARN_TRACKS},
+          f"learning launches {counts}, want {LEARN_TRACKS} of K1 and nothing else")
+    # The same corpus through the state API: a track's host-clock seconds,
+    # then the plain versions on the card.
+    state, track_s = pca.CovarianceState.zero(cfg), []
+    for t in corpus:
+        t1 = time.perf_counter()
+        state = pca.accumulate_track(state, t, cfg, device=dev)
+        track_s.append(time.perf_counter() - t1)
+    t0 = time.perf_counter()
+    finalized = pca.finalize_filters(state, cfg)
+    eigh_s = time.perf_counter() - t0
+    check(np.array_equal(finalized, learned),
+          "finalize_filters of the card's state differs from learn_filters")
+    plain = pca.CovarianceState.zero(cfg)
+    with plain_versions():
+        for t in corpus:
+            plain = pca.accumulate_track(plain, t, cfg, device=dev)
+    check(state.count == plain.count, f"counts {state.count} vs plain {plain.count}")
+    rel = float(np.max(np.abs(state.xtx - plain.xtx) / np.abs(plain.xtx).clip(1e-30)))
+    check(np.allclose(state.xtx, plain.xtx, rtol=1e-4, atol=0)
+          and np.allclose(state.xsum, plain.xsum, rtol=1e-4, atol=0),
+          f"X^T X or sum X beyond rtol 1e-4 of the plain versions (max rel {rel:.2e})")
+    cos = np.abs(np.sum(learned.astype(np.float64) * pca.finalize_filters(plain, cfg), axis=0))
+    check(bool(np.all(cos > 0.98)), f"a filter's |cos| against the plain route is {cos.min()}")
+    # The X^T X GEMM of one 30 s track: float32 on the CUDA cores (TF32 off).
+    x = context_matrix(frontend.cqt(torch.from_numpy(corpus[0]).to(dev), cfg), cfg)
+    m, d = x.shape
+    gemm_ms = cuda_ms(lambda: precise_matmul(x.T, x))
+    gemm_bound = bound(nbytes(x) + 4 * d * d, 2 * m * d * d, "fp32")
+    log(f"phase 18 learning: {LEARN_TRACKS} x {LEARN_SECONDS:.0f} s, D {cfg.context_dim}: "
+        f"api.learn_filters in {learn_s:.2f} s ({learn_s / LEARN_TRACKS:.3f} s a track); "
+        f"finalize_filters alone {eigh_s:.2f} s; accumulate_track median "
+        f"{statistics.median(track_s):.4f} s, max {max(track_s):.4f} s (host clock); count "
+        f"{state.count} = plain; X^T X max rel diff {rel:.2e} (<= 1e-4); min |cos| "
+        f"{cos.min():.6f} (> 0.98); finalize_filters(state) == learn_filters; launches "
+        f"{counts}")
+    log(f"phase 18 X^T X GEMM ({m} x {d}): {gemm_ms:.4f} ms (cuBLAS float32, TF32 off), "
+        f"bound {gemm_bound[0]:.4f} ms ({gemm_bound[1]}, 67 TFLOP/s float32)")
+
+
+def run_renditions(ts, filters_np, stream_pcm, stream_rows) -> None:
+    """Phase 19: identity-first matching with the rendition scan on the
+    catalog_scale() TwoStageDB ts, whose rows stream_rows hold the stream
+    tracks."""
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.filters import filters_from_jax
+    from hpfw_tpu_torch.io import synth
+    from hpfw_tpu_torch.ops import frontend
+    from hpfw_tpu_torch.ops import fingerprint as fp_ops
+
+    cfg, dev = ts.db.cfg, ts.device
+    n_s = int(SCAN_SECONDS * cfg.sample_rate)
+    pcms, truths = [], []
+    for i in range(SCAN_IN_TEMPO + SCAN_RENDITIONS):
+        start = 4.0 + 9.0 * (i % SCAN_IN_TEMPO)
+        if i < SCAN_IN_TEMPO:
+            q = synth.make_query(stream_pcm[i], start, SCAN_SECONDS, cfg, noise_db=-20.0,
+                                 seed=100 + i)
+        else:   # played 2.9% fast and +0.5 semitone: a 10.5 s clip resampled
+            clip = synth.make_query(stream_pcm[i], start, 1.05 * SCAN_SECONDS, cfg,
+                                    noise_db=-20.0, seed=100 + i)
+            q = synth.pitch_shift(clip, RENDITION_SEMITONES, cfg)[:n_s]
+        check(len(q) == n_s, f"query {i}: {len(q)} samples, want {n_s}")
+        pcms.append(q)
+        truths.append(str(stream_rows[i]))
+    pcms = np.stack(pcms)
+    kw = dict(span=SCAN_SPAN, pitch_span_bins=SCAN_PITCH_BINS)
+    hyps = api.scan_hypotheses(cfg, **kw)
+    v = len(hyps)
+    renditions = list(range(SCAN_IN_TEMPO, len(pcms)))
+
+    stats: dict = {}
+    start_path()
+    t0 = time.perf_counter()
+    res = api.match_scan_escalating(pcms, filters_np, ts, cfg, stats=stats, **kw)
+    esc_s = time.perf_counter() - t0
+    counts = end_path()
+    top = [r[0][0] for r in res]
+    check(top == truths, f"escalating match: top {top}, want {truths}")
+    check(stats["escalated"] == renditions,
+          f"escalated {stats['escalated']}, want the renditions {renditions}")
+    n_esc = len(renditions)
+    check(counts.get("cqt") == len(pcms) + n_esc
+          and counts.get("fingerprint") == len(pcms) + v * n_esc
+          and all(counts.get(k, 0) > 0 for k in ("coarse_scan_batch", "coarse_rescan",
+                                                  "fine_rescan")),
+          f"escalation launches {counts}: want K1 {len(pcms)} + {n_esc}, K2 {len(pcms)} + "
+          f"{v} x {n_esc}, and the matcher's kernels")
+    # The same call through the plain extraction on the card: the same stats,
+    # and the same results for every query whose prints (rigid and all
+    # variants) are the same. K1 is within 1e-4 of the plain CQT, so a bit of
+    # a query's prints may differ, and a score by as many: such a query's top
+    # hit keeps its (id, offset), its score within the differing bits.
+    filt = filters_from_jax(filters_np, cfg, dev)
+    pcm_t = torch.from_numpy(pcms).to(dev)
+    stacks = api.fingerprint_scan_batch_device(pcm_t, filt, cfg, hyps)
+    plain_stats: dict = {}
+    with plain_versions():
+        res_plain = api.match_scan_escalating(pcms, filters_np, ts, cfg, stats=plain_stats,
+                                              **kw)
+        stacks_plain = api.fingerprint_scan_batch_device(pcm_t, filt, cfg, hyps)
+    q_bits = [differing_bits(a, b) for a, b in zip(stacks, stacks_plain)]
+    d_score = [abs(int(a[1][0]) - int(b[1][0])) for a, b in zip(res, res_plain)]
+    same = [same_results([a], [b]) for a, b in zip(res, res_plain)]
+    check(plain_stats == stats
+          and all(s for s, q in zip(same, q_bits) if q == 0)
+          and all((a[0][0], int(a[2][0])) == (b[0][0], int(b[2][0])) and d <= q
+                  for a, b, d, q in zip(res, res_plain, d_score, q_bits)),
+          f"escalation through the plain extraction: stats {plain_stats} vs {stats}, "
+          f"identical results {same}, top "
+          f"{[(r[0][0], int(r[1][0]), int(r[2][0])) for r in res_plain]} vs "
+          f"{[(r[0][0], int(r[1][0]), int(r[2][0])) for r in res]}, query bits {q_bits}")
+    check(torch.equal(stacks[:, v // 2], api.fingerprint_batch_device(pcm_t, filt, cfg)),
+          "the scan's identity row differs from plain extraction")
+    worst, total = 0, 0
+    for i in range(len(pcms)):
+        for j, sv in enumerate(api.scan_spectra(frontend.cqt(pcm_t[i], cfg), hyps)):
+            bits = differing_bits(stacks[i, j], fp_ops.fingerprint_from_spec_ref(sv, filt, cfg))
+            check(bits <= k2_gate(stacks[i, j]),
+                  f"query {i} variant {hyps[j]}: {bits} differing bits > {k2_gate(stacks[i, j])}")
+            worst, total = max(worst, bits), total + bits
+
+    # Times: one query's scan extraction (K1, the gathers, V x K2) by CUDA
+    # events, at most 8 calls behind the spin so that their launches fit the
+    # card's launch queue, and by host clock; the rigid and the escalated
+    # match_batch by host clock (median of 5).
+    def host_ms(fn) -> float:
+        fn()
+        lat = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(lat)
+
+    def scan_one():
+        return api.fingerprint_scan_batch_device(pcm_t[:1], filt, cfg, hyps)
+
+    variants = api.scan_spectra(frontend.cqt(pcm_t[0], cfg), hyps)
+    scan_ms, scan_host = cuda_ms(scan_one, max_reps=8), host_ms(scan_one)
+    k1_ms = cuda_ms(lambda: frontend.cqt(pcm_t[0], cfg))
+    k2_ms = cuda_ms(lambda: [fp_ops.fingerprint_from_spec(sv, filt, cfg) for sv in variants],
+                    max_reps=8)
+    stacks_np = api._to_numpy_prints(stacks)
+    sbatch = max(1, min(10, 70 // v))
+    k_int = max(2, cfg.top_k)
+    rigid_np = stacks_np[:, v // 2]
+    esc_np = stacks_np[SCAN_IN_TEMPO:SCAN_IN_TEMPO + sbatch]
+
+    # The escalation's first dispatch (sbatch queries x V variant rows) once
+    # more, with every K4 and K5 call held to its plain version on the same
+    # inputs, then once through the plain K4 and K5: the same results.
+    held: dict = {}
+    with matcher_held_to_plain(held):
+        esc = ts.match_batch(esc_np, top_k=k_int)
+    check(all(k in held for k in ("coarse_scan_batch", "coarse_rescan", "fine_rescan")),
+          f"the escalated match_batch ran {sorted(held)}, want pass 1, the rescan and K5")
+    with plain_matcher():
+        esc_plain = ts.match_batch(esc_np, top_k=k_int)
+    check(same_results(esc, esc_plain),
+          "the escalated match_batch through the plain K4 and K5 differs")
+
+    rigid_ms = host_ms(lambda: ts.match_batch(rigid_np, top_k=k_int, stretch_span=0.0))
+    esc_ms = host_ms(lambda: ts.match_batch(esc_np, top_k=k_int))
+    scores = [(int(r[1][0]), int(r[1][1])) for r in res]
+    log(f"phase 19 rendition scan: {len(pcms)} x {SCAN_SECONDS:.0f} s queries ({SCAN_IN_TEMPO} "
+        f"in tempo, {SCAN_RENDITIONS} at +{RENDITION_SEMITONES} st), V = {v}: all rank their "
+        f"tracks first; escalated {stats['escalated']}, overridden {stats['overridden']}; "
+        f"top-1/top-2 scores {scores} of {64 * stacks.shape[2]}; through the plain "
+        f"extraction: the same stats and top hits, {sum(same)}/{len(pcms)} top-{cfg.top_k} "
+        f"results identical (every query with 0 differing bits), top-1 scores off by "
+        f"{d_score} with {q_bits} differing query bits (rigid and all variants); identity "
+        f"row == plain extraction; variant K2 vs plain: worst {worst}, total {total} "
+        f"differing bits; {esc_s:.2f} s; launches {counts}")
+    log(f"phase 19 escalated match_batch of {sbatch} x {v} variant rows: K4 and K5 equal to "
+        f"their plain versions on the path's inputs ("
+        + ", ".join(f"{k} on {sorted(set(s))}" for k, s in held.items())
+        + "); the dispatch through the plain K4 and K5 gives the same results")
+    log(f"phase 19 times: scan extraction a query (K1, the gathers, {v} x K2) {scan_ms:.4f} "
+        f"ms by CUDA events, {scan_host:.3f} ms by host clock; K1 alone {k1_ms:.4f} ms, {v} x "
+        f"K2 alone {k2_ms:.4f} ms; match_batch (host clock, median of 5): rigid {len(pcms)} "
+        f"queries {rigid_ms:.3f} ms, escalated {sbatch} x {v} variant rows {esc_ms:.3f} ms "
+        f"= {esc_ms / sbatch:.3f} ms a query")
+
+
+def run_artists(dev: torch.device) -> None:
+    """Phase 20: known-artist mode at config 5's artist_eval sizes."""
+    from hpfw_tpu_torch import ArtistDB, api
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.io import synth
+    from hpfw_tpu_torch.ops import fingerprint as fp_ops
+    from hpfw_tpu_torch.ops import frontend
+
+    cfg = HpfwConfig()
+    t0 = time.perf_counter()
+    catalogs = {f"artist{a}": {f"a{a}t{i}": synth.synth_artist_track(a, i, ARTIST_SECONDS, cfg)
+                               for i in range(ARTIST_TRACKS)}
+                for a in range(ARTISTS)}
+    log(f"  synthesized {ARTISTS} x {ARTIST_TRACKS} x {ARTIST_SECONDS:.0f} s in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_tracks = ARTISTS * ARTIST_TRACKS
+    start_path()
+    t0 = time.perf_counter()
+    adb = ArtistDB.build(catalogs, cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    counts = end_path()
+    check(counts == {"cqt": 2 * n_tracks, "fingerprint": n_tracks},
+          f"build launches {counts}: want K1 {2 * n_tracks} (learning, extraction), "
+          f"K2 {n_tracks}")
+    # Stride 4, as tests/test_artist.py scales its banks: at the default
+    # stride of 16 a query whose offset lies half a window off the grid
+    # loses its coarse peak (config.py's coarse_query_phases note).
+    scaled = ArtistDB(cfg, adb.banks, scaled=True, stride=4, device=dev)
+    queries = []
+    for a, name in enumerate(adb.artists):
+        tid = f"a{a}t{(3 * a + 1) % ARTIST_TRACKS}"
+        queries.append((name, tid, synth.make_query(catalogs[name][tid], 1.5 + a,
+                                                    ARTIST_QUERY_SECONDS, cfg,
+                                                    noise_db=-20.0, seed=200 + a)))
+    start_path()
+    t0 = time.perf_counter()
+    for name, tid, q in queries:
+        for mode in ("known", "unknown"):
+            want = tid if mode == "known" else (name, tid)
+            kw = dict(artist=name) if mode == "known" else {}
+            dense, two = adb.match(q, **kw), scaled.match(q, **kw)
+            hit = (dense[0][0], int(dense[1][0]), int(dense[2][0]))
+            check(hit[0] == want, f"{mode} artist, dense: top {hit}, want {want}")
+            check((two[0][0], int(two[1][0]), int(two[2][0])) == hit,
+                  f"{mode} artist: scaled top {two[0][0]} {two[1][0]} {two[2][0]} != dense {hit}")
+    match_s = time.perf_counter() - t0
+    counts = end_path()
+    check(all(counts.get(k, 0) > 0 for k in ("cqt", "fingerprint", "score_tracks",
+                                              "coarse_scan", "fine_rescan")),
+          f"artist match launches {counts}: a kernel of the path never ran")
+    # The same matches once more, every K3 (dense banks), K4 and K5 (scaled
+    # banks) call held to its plain version on the same inputs.
+    held: dict = {}
+    with matcher_held_to_plain(held):
+        for name, _, q in queries:
+            for kw in (dict(artist=name), {}):
+                adb.match(q, **kw), scaled.match(q, **kw)
+    check(all(k in held for k in ("score_tracks", "coarse_scan", "fine_rescan")),
+          f"the artist matches ran {sorted(held)}, want K3, K4 coarse_scan and K5")
+    # fingerprint_multi against per-bank fingerprint and the plain versions.
+    stack = np.stack([adb.banks[a].filters for a in adb.artists])
+    q = queries[0][2]
+    multi = api.fingerprint_multi(q, stack, cfg, device=dev)
+    for i, a in enumerate(adb.artists):
+        check(np.array_equal(multi[i], api.fingerprint(q, stack[i], cfg, device=dev)),
+              f"fingerprint_multi bank {a} differs from fingerprint with that bank")
+    with plain_versions():
+        plain = api.fingerprint_multi(q, stack, cfg, device=dev)
+    bits = [int(np.bitwise_count(m ^ p).sum()) for m, p in zip(multi, plain)]
+    check(all(b <= k2_gate(torch.from_numpy(m)) for b, m in zip(bits, multi)),
+          f"fingerprint_multi vs the plain versions: {bits} differing bits")
+    stack_t = torch.from_numpy(stack).to(dev)
+    pcm_t = torch.from_numpy(api._bucket_pad(q, cfg, 1.0)).to(dev)
+
+    def multi_dev():
+        spec = frontend.cqt(pcm_t, cfg)
+        return [fp_ops.fingerprint_from_spec(spec, f, cfg) for f in stack_t]
+
+    multi_ms = cuda_ms(multi_dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        api.fingerprint_multi(q, stack, cfg, device=dev)
+    multi_host = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"phase 20 artists: ArtistDB.build of {ARTISTS} x {ARTIST_TRACKS} x "
+        f"{ARTIST_SECONDS:.0f} s in {build_s:.2f} s ({ARTISTS} banks learned, "
+        f"{n_tracks} tracks extracted); {len(queries)} noisy {ARTIST_QUERY_SECONDS:.0f} s "
+        f"queries, known and unknown artist, dense and scaled: each ranks its track first, "
+        f"scaled top hit == dense, in {match_s:.2f} s; launches {counts}; K3, K4 and K5 "
+        f"equal to their plain versions on every call of those matches "
+        f"({ {k: len(s) for k, s in held.items()} } calls); fingerprint_multi "
+        f"== per-bank fingerprint, vs plain {bits} differing bits; fingerprint_multi at A = "
+        f"{ARTISTS} (K1 + {ARTISTS} x K2, {multi.shape[1]} prints) {multi_ms:.4f} ms by CUDA "
+        f"events, {multi_host:.3f} ms a call by host clock (mean of 5, filter upload and "
+        f"copies included)")
 
 
 if __name__ == "__main__":

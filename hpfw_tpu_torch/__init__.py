@@ -14,9 +14,15 @@ Public surface (the slice of hpfw_tpu's that is ported so far):
     MatchServer(ts, n).submit -> future                 (serving)
     StreamingSession / StreamingPool .feed -> hypotheses (live ID, rigid)
     ChunkedExtractor.feed -> hashprints                  (streaming extraction)
+    learn_filters(corpus) -> projection filters
+    fingerprint_scan_batch / match_scan_escalating       (rendition scans)
+    fingerprint_multi, ArtistDB                          (known-artist mode)
 """
 
-from .api import FingerprintDB, build_db, fingerprint, match
+from .api import (FingerprintDB, build_db, fingerprint, fingerprint_multi,
+                  fingerprint_scan_batch, learn_filters, match, match_scan_escalating,
+                  scan_hypotheses)
+from .artist import ArtistDB
 from .config import DEFAULT_CONFIG, HpfwConfig
 from .match.scaled import TwoStageDB
 from .serve import MatchServer, ServerSaturated
@@ -27,6 +33,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "FingerprintDB", "TwoStageDB", "build_db", "fingerprint", "match",
+    "learn_filters", "fingerprint_scan_batch", "scan_hypotheses",
+    "match_scan_escalating", "fingerprint_multi", "ArtistDB",
     "MatchServer", "ServerSaturated", "StreamingPool", "StreamingSession",
     "ChunkedExtractor", "HpfwConfig", "DEFAULT_CONFIG", "__version__",
 ]

@@ -3,16 +3,22 @@
     fingerprint(audio)      -> hashprint sequence
     match(query, db)        -> ranked track IDs
     build_db(catalog)       -> FingerprintDB
+    learn_filters(corpus)   -> projection filters
 
-Functions take and return numpy with the shapes and dtypes of hpfw_tpu.api
-(prints are (N, 2) uint32). Work runs on the `device` argument, else the
-device of the filters tensor or DB passed in, else the card when torch sees
-one: the CPU only when the caller asks for it or there is no card. On a
-CUDA device the hot path is the three kernels in csrc/; on the CPU it is
-their plain PyTorch versions. Nothing falls back from one to the other.
+plus the rendition scans (fingerprint_scan_batch, match_scan_escalating over
+a TwoStageDB) and multi-bank extraction for known-artist mode
+(fingerprint_multi, artist.ArtistDB). Functions take and return numpy with
+the shapes and dtypes of hpfw_tpu.api (prints are (N, 2) uint32). Work runs
+on the `device` argument, else the device of the filters tensor or DB passed
+in, else the card when torch sees one: the CPU only when the caller asks for
+it or there is no card. On a CUDA device the hot path is the kernels in
+csrc/; on the CPU it is their plain PyTorch versions. Nothing falls back
+from one to the other.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -20,7 +26,10 @@ import torch
 from .config import DEFAULT_CONFIG, HpfwConfig
 from .filters import filters_from_jax
 from .match import matcher
-from .ops import fused
+from .match.align import structure_evidence
+from .match.stretch import hypothesis_grid, pitch_grid, stretch_grid
+from .ops import fingerprint as fp_ops
+from .ops import frontend, fused
 
 
 def default_device() -> torch.device:
@@ -57,6 +66,16 @@ def _to_tensor_prints(prints: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _bucket_pad(pcm: np.ndarray, cfg: HpfwConfig, bucket_s: float) -> np.ndarray:
+    """pcm zero-padded up to a multiple of bucket_s seconds (0: as it is)."""
+    if bucket_s:
+        bucket = max(1, int(round(bucket_s * cfg.sample_rate)))
+        padded = -(-pcm.shape[0] // bucket) * bucket
+        if padded != pcm.shape[0]:
+            pcm = np.concatenate([pcm, np.zeros(padded - pcm.shape[0], np.float32)])
+    return pcm
+
+
 def fingerprint(
     pcm: np.ndarray,
     filters,
@@ -76,11 +95,7 @@ def fingerprint(
     n_true = cfg.n_hashprints(pcm.shape[0])
     if n_true == 0:
         return np.zeros((0, 2), dtype=np.uint32)
-    if bucket_s:
-        bucket = max(1, int(round(bucket_s * cfg.sample_rate)))
-        padded = -(-pcm.shape[0] // bucket) * bucket
-        if padded != pcm.shape[0]:
-            pcm = np.concatenate([pcm, np.zeros(padded - pcm.shape[0], np.float32)])
+    pcm = _bucket_pad(pcm, cfg, bucket_s)
     dev = _resolve_device(device, filters)
     out = fused.fingerprint(torch.from_numpy(pcm).to(dev),
                             _filters_on(filters, cfg, dev), cfg)
@@ -116,6 +131,325 @@ def fingerprint_batch(
     out = fingerprint_batch_device(torch.from_numpy(pcms).to(dev),
                                    _filters_on(filters, cfg, dev), cfg)
     return _to_numpy_prints(out)
+
+
+# ---- the rendition scan: one spectrum, V re-timed / re-keyed variants ----
+
+@functools.lru_cache(maxsize=16)
+def _hypothesis_table(hyps: tuple, device: torch.device) -> torch.Tensor:
+    """(V, 2) float32 [tempo factor, bin roll] of the hypotheses on device,
+    uploaded once per grid (an upload waits for the card)."""
+    return torch.tensor(hyps, dtype=torch.float32).to(device)
+
+
+def scan_spectra(spec: torch.Tensor, factors, interp: str = "linear") -> torch.Tensor:
+    """(F, n_bins) log-mag CQT frames -> (V, F, n_bins) variant spectra on
+    spec's device, one a hypothesis: a tempo factor s (a plain float) or an
+    (s, roll) pair.
+
+    - TEMPO: catalog frame i <- rendition frame pos = i / s, clamped to
+      [0, F - 1]; "linear" blends frames floor(pos) and floor(pos) + 1,
+      "nearest" takes round(pos) (half to even, as jnp.round).
+    - PITCH: catalog bin k <- query bin k + roll, edge-clamped.
+
+    The gather of hpfw_tpu.api.scan_from_spec (:141-149), in float32 (i / s
+    divided, not multiplied by a reciprocal), for all V at once. The
+    identity hypothesis (1.0, 0) gives spec itself, bit for bit.
+    """
+    hyps = tuple(h if isinstance(h, tuple) else (float(h), 0) for h in factors)
+    table = _hypothesis_table(hyps, spec.device)
+    f, nb = spec.shape
+    base = torch.arange(f, dtype=torch.float32, device=spec.device)
+    bins = torch.arange(nb, device=spec.device)
+    pos = (base[None, :] / table[:, :1]).clamp(0.0, f - 1.0)                # (V, F)
+    cols = (bins[None, :] + table[:, 1:].long()).clamp(0, nb - 1)[:, None]  # (V, 1, nb)
+    if interp == "linear":
+        i0 = pos.floor().long()
+        i1 = (i0 + 1).clamp(max=f - 1)
+        frac = (pos - i0.to(torch.float32))[..., None]
+        return spec[i0[..., None], cols] * (1.0 - frac) + spec[i1[..., None], cols] * frac
+    return spec[torch.round(pos).long()[..., None], cols]
+
+
+def scan_from_spec(spec: torch.Tensor, filters: torch.Tensor, cfg: HpfwConfig,
+                   factors, interp: str = "linear") -> torch.Tensor:
+    """(F, n_bins) spectrum -> (V, F - halo, 2) int32 prints on its device:
+    scan_spectra's variants, each through the encoder (K2 on the card, its
+    plain version on the CPU), one launch a variant. The NDFT front end is
+    not re-run: every variant shares the one spectrum."""
+    return torch.stack([fp_ops.fingerprint_from_spec(sv, filters, cfg)
+                        for sv in scan_spectra(spec, factors, interp)])
+
+
+def scan_hypotheses(cfg: HpfwConfig, span=None, step=None,
+                    pitch_span_bins=None) -> tuple:
+    """The (tempo factor, pitch roll) product grid a scan call will use.
+
+    Resolves span/step/pitch_span_bins against the config's knobs; the
+    combined identity hypothesis (1.0, 0) always sits at index V//2.
+    """
+    span = span if span is not None else cfg.stretch_span
+    step = step if step is not None else cfg.stretch_step
+    p = (pitch_span_bins if pitch_span_bins is not None
+         else cfg.pitch_span_bins)
+    if span <= 0.0 and p <= 0:
+        raise ValueError("scan needs a positive stretch span and/or pitch "
+                         "span (set cfg.stretch_span / cfg.pitch_span_bins "
+                         "or pass span= / pitch_span_bins=)")
+    factors = stretch_grid(span, step) if span > 0.0 else [1.0]
+    return tuple(hypothesis_grid(factors, pitch_grid(max(p, 0))))
+
+
+def fingerprint_scan_batch_device(pcms: torch.Tensor, filters: torch.Tensor,
+                                  cfg: HpfwConfig, hyps, interp: str = "linear"
+                                  ) -> torch.Tensor:
+    """(B, S) float32 PCM tensor -> (B, V, N, 2) int32 prints on its device:
+    one CQT a track, then scan_from_spec over the hypotheses."""
+    n = cfg.n_hashprints(pcms.shape[1])
+    if n == 0:
+        return torch.zeros((pcms.shape[0], len(hyps), 0, 2), dtype=torch.int32,
+                           device=pcms.device)
+    return torch.stack([scan_from_spec(frontend.cqt(p, cfg), filters, cfg, hyps, interp)
+                        for p in pcms])
+
+
+def fingerprint_scan_batch(
+    pcms: np.ndarray,
+    filters,
+    cfg: HpfwConfig = DEFAULT_CONFIG,
+    *,
+    span: float | None = None,
+    step: float | None = None,
+    pitch_span_bins: int | None = None,
+    interp: str = "linear",
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """(B, S) PCM -> (B, V, N, 2) uint32: rendition-hypothesis variants.
+
+    V = (2*span/step + 1) * (2*pitch_span_bins + 1) catalog-tempo,
+    catalog-key re-extractions a query, sharing one CQT. Feed the stack to
+    TwoStageDB.match_batch: a 4-D batch ranks each query's variant rows
+    together. span/step/pitch_span_bins default to the config's knobs. The
+    middle variant (index V//2) is the identity hypothesis: exactly the
+    plain extraction.
+    """
+    pcms = np.asarray(pcms, dtype=np.float32)
+    if pcms.ndim != 2:
+        raise ValueError(f"expected (B, S) PCM batch, got shape {pcms.shape}")
+    if interp not in ("linear", "nearest"):
+        raise ValueError(f"unknown interp {interp!r}")
+    hyps = scan_hypotheses(cfg, span, step, pitch_span_bins)
+    dev = _resolve_device(device, filters)
+    out = fingerprint_scan_batch_device(torch.from_numpy(pcms).to(dev),
+                                        _filters_on(filters, cfg, dev), cfg, hyps, interp)
+    return _to_numpy_prints(out)
+
+
+# ---- identity-first matching with rendition-scan escalation ----
+
+def rigid_confident(scores, n_prints: int, *, threshold: float = 0.62,
+                    margin: float = 0.04, hi_sim: float = 0.78) -> bool:
+    """The escalation gate: is a rigid ranked result CONFIDENT (final)?
+
+    True when top-1 similarity >= hi_sim, or >= threshold with a top1->top2
+    relative margin >= margin (wrong answers sit nearly tied with their
+    imposter tail). hi_sim <= 0 disables escalation entirely.
+    """
+    if hi_sim <= 0.0:
+        return True
+    if not len(scores):
+        return False
+    s1 = float(scores[0])
+    if s1 >= hi_sim * 64.0 * n_prints:
+        return True
+    if s1 < threshold * 64.0 * n_prints:
+        return False
+    s2 = float(scores[1]) if len(scores) > 1 else 0.0
+    return (s1 - s2) / max(s1, 1e-9) >= margin
+
+
+def scan_overrides(scan_scores, rigid_scores, *,
+                   override: float = 0.02) -> bool:
+    """The override rule: a scan result replaces the rigid answer only when
+    its top score beats the rigid top score by the relative `override`
+    margin."""
+    if not len(scan_scores):
+        return False
+    rigid_s = float(rigid_scores[0]) if len(rigid_scores) else 0.0
+    return float(scan_scores[0]) > (1.0 + override) * rigid_s
+
+
+def rigid_structured(query_prints, track_prints, offset, *,
+                     inlier: float = 0.75, slope_tol: float = 0.005,
+                     k: int = 8, band: int = 24, tol: float = 2.0,
+                     length: int | None = None) -> bool:
+    """Structural second opinion on a rigid answer (match/align.py): True
+    when the sub-window offsets' Theil-Sen fit has inlier_frac >= `inlier`
+    and |slope| <= `slope_tol`."""
+    ev = structure_evidence(np.asarray(query_prints), np.asarray(track_prints),
+                            int(offset), k=k, band=band, tol=tol, length=length)
+    return ev["inlier_frac"] >= inlier and abs(ev["slope"]) <= slope_tol
+
+
+def match_scan_escalating(
+    pcms: np.ndarray,
+    filters,
+    ts,
+    cfg: HpfwConfig = DEFAULT_CONFIG,
+    *,
+    threshold: float = 0.62,
+    margin: float = 0.04,
+    hi_sim: float = 0.78,
+    override: float = 0.02,
+    span: float | None = None,
+    step: float | None = None,
+    pitch_span_bins: int | None = None,
+    top_k: int | None = None,
+    pool: int | None = None,
+    batch: int = 10,
+    retry_pool: int | None = None,
+    retry_fine_window: int | None = None,
+    structure_gate: float | None = None,
+    structure_slope_tol: float = 0.005,
+    override_unstructured: float | None = None,
+    stats: dict | None = None,
+) -> list:
+    """Identity-first matching with rendition-scan escalation against a
+    TwoStageDB ts, as hpfw_tpu.api.match_scan_escalating (its docstring has
+    the measurements behind each rung).
+
+    Every query is extracted and matched rigid. A query whose rigid answer
+    is not confident (rigid_confident) may first be re-matched rigid with
+    retry_pool / retry_fine_window, then kept when structure_gate is set and
+    its sub-window offsets are collinear at ~zero slope (rigid_structured);
+    the rest escalate: fingerprint_scan_batch's (B, V, N, 2) stack is matched
+    with every hypothesis ranking together, and replaces the rigid answer
+    when scan_overrides (with override_unstructured as the bar for answers
+    the structure gate rejected, when both are set). Extraction runs on
+    ts.device.
+
+    Returns match_batch-shaped results: a list of (ids, scores, offsets).
+    If `stats` is given it is filled with {"escalated": [indices],
+    "overridden": [indices], "retried": [indices], "structure_kept":
+    [indices]}.
+    """
+    pcms = np.asarray(pcms, dtype=np.float32)
+    if pcms.ndim != 2:
+        raise ValueError(f"expected (B, S) PCM batch, got shape {pcms.shape}")
+    dev = ts.device
+    filt = _filters_on(filters, cfg, dev)
+    prints = fingerprint_batch(pcms, filt, cfg, device=dev)
+    n = prints.shape[1]
+    k_int = max(2, top_k if top_k is not None else cfg.top_k)
+    results = []
+    for i in range(0, prints.shape[0], batch):
+        results.extend(ts.match_batch(prints[i:i + batch], top_k=k_int,
+                                      pool=pool, stretch_span=0.0))
+
+    def unconfident(items):
+        return [i for i in items
+                if not rigid_confident(results[i][1], n, threshold=threshold,
+                                       margin=margin, hi_sim=hi_sim)]
+
+    low = unconfident(range(len(results)))
+    if stats is not None:
+        stats["escalated"] = []
+        stats["overridden"] = []
+        stats["retried"] = list(low) if (retry_pool or retry_fine_window) else []
+        stats["structure_kept"] = []
+    if low and (retry_pool or retry_fine_window):
+        for i in range(0, len(low), batch):
+            chunk = low[i:i + batch]
+            retried = ts.match_batch(prints[chunk], top_k=k_int,
+                                     pool=retry_pool or pool,
+                                     fine_window=retry_fine_window,
+                                     stretch_span=0.0)
+            for j, r in zip(chunk, retried):
+                results[j] = r
+        low = unconfident(low)
+    if low and structure_gate is not None:
+        kept, still = [], []
+        for i in low:
+            ids, sc, off = results[i]
+            if len(ids) and rigid_structured(
+                    prints[i], ts.db.prints[ts.db.index_of(ids[0])], off[0],
+                    inlier=structure_gate, slope_tol=structure_slope_tol,
+                    length=int(ts.db.lengths[ts.db.index_of(ids[0])])):
+                kept.append(i)
+            else:
+                still.append(i)
+        low = still
+        if stats is not None:
+            stats["structure_kept"] = kept
+    if stats is not None:
+        stats["escalated"] = list(low)
+    if low:
+        stacks = fingerprint_scan_batch(pcms[low], filt, cfg, span=span, step=step,
+                                        pitch_span_bins=pitch_span_bins, device=dev)
+        # About 70 variant rows a dispatch, as the reference sizes them.
+        sbatch = max(1, min(batch, 70 // stacks.shape[1]))
+        rescued = []
+        for i in range(0, stacks.shape[0], sbatch):
+            rescued.extend(ts.match_batch(stacks[i:i + sbatch], top_k=k_int,
+                                          pool=pool))
+        ov = (override_unstructured
+              if (structure_gate is not None
+                  and override_unstructured is not None) else override)
+        for i, r in zip(low, rescued):
+            if scan_overrides(r[1], results[i][1], override=ov):
+                results[i] = r
+                if stats is not None:
+                    stats["overridden"].append(i)
+    k = top_k if top_k is not None else cfg.top_k
+    if k < k_int:   # the internal rank ran deeper for the margin test
+        results = [(ids[:k], sc[:k], off[:k]) for ids, sc, off in results]
+    return results
+
+
+# ---- known-artist extraction and filter learning ----
+
+def fingerprint_multi(
+    pcm: np.ndarray,
+    filter_stack,
+    cfg: HpfwConfig = DEFAULT_CONFIG,
+    *,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """Fingerprint one clip under A filter banks -> (A, N, 2) uint32.
+
+    One CQT (K1 on the card), then the encoder once a bank (K2), on the
+    spectrum fingerprint() computes for the clip (padded the same way), so
+    row a equals fingerprint(pcm, filter_stack[a]) on the same device bit
+    for bit. filter_stack: (A, context_dim, 64), numpy or a tensor.
+    """
+    pcm = np.asarray(pcm, dtype=np.float32).reshape(-1)
+    if not isinstance(filter_stack, torch.Tensor):
+        filter_stack = np.asarray(filter_stack, dtype=np.float32)
+    if filter_stack.ndim != 3:
+        raise ValueError(f"expected (A, D, 64) filter stack, got {tuple(filter_stack.shape)}")
+    n_true = cfg.n_hashprints(pcm.shape[0])
+    if n_true == 0:
+        return np.zeros((filter_stack.shape[0], 0, 2), dtype=np.uint32)
+    dev = _resolve_device(device, filter_stack)
+    spec = frontend.cqt(torch.from_numpy(_bucket_pad(pcm, cfg, 1.0)).to(dev), cfg)
+    out = torch.stack([fp_ops.fingerprint_from_spec(spec, _filters_on(f, cfg, dev), cfg)
+                       for f in filter_stack])
+    return _to_numpy_prints(out[:, :n_true])
+
+
+def learn_filters(
+    corpus: list[np.ndarray],
+    cfg: HpfwConfig = DEFAULT_CONFIG,
+    *,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """Learn the 64 spectro-temporal projection filters: streaming covariance
+    of context vectors (K1 and a float32 X^T X GEMM a track, on device) and
+    a float64 eigh on the host; see learn/pca.py. Returns (context_dim, 64)
+    float32."""
+    from .learn import pca
+
+    return pca.learn_filters(corpus, cfg, device=device)
 
 
 def match(

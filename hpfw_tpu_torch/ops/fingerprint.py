@@ -23,6 +23,14 @@ MAX_DELTA_LAG = 64
 MAX_BINS = 128
 
 
+def context_matrix(spec: torch.Tensor, cfg: HpfwConfig) -> torch.Tensor:
+    """(F, n_bins) spectrum -> (F - w + 1, w * n_bins) context vectors x(n),
+    time-major: x(n) is frames n..n+w-1 one after another. Needs F >= w."""
+    f, b = spec.shape
+    w = cfg.context_w
+    return spec.unfold(0, w, 1).transpose(1, 2).reshape(f - w + 1, w * b)
+
+
 def project_features(spec: torch.Tensor, filters: torch.Tensor,
                      cfg: HpfwConfig) -> torch.Tensor:
     """y(n) = F^T x(n) over context windows, shape (F-w+1, 64).
@@ -30,13 +38,9 @@ def project_features(spec: torch.Tensor, filters: torch.Tensor,
     filters: (context_dim, 64) time-major (rows j*n_bins:(j+1)*n_bins act on
     spectrum frame n+j).
     """
-    f, b = spec.shape
-    w = cfg.context_w
-    m = f - w + 1
-    if m <= 0:
+    if spec.shape[0] < cfg.context_w:
         return spec.new_zeros((0, filters.shape[1]))
-    x = spec.unfold(0, w, 1).transpose(1, 2).reshape(m, w * b)
-    return precise_matmul(x, filters)
+    return precise_matmul(context_matrix(spec, cfg), filters)
 
 
 def delta(y: torch.Tensor, cfg: HpfwConfig) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """The port's copies of framework-free pieces, pinned to their originals.
 
 hpfw_tpu_torch cannot import hpfw_tpu (whose package import pulls in jax),
-so it carries copies of the config, the synthetic-audio generator, the
-eigenvector sign convention and the CQT kernel matrix. These tests hold each
-copy bit-identical to the original, prove the port imports no jax, and check
+so it carries copies of the config, the synthetic-audio generators (tracks,
+artist tracks, queries, pitch shift), the eigenvector sign convention, the
+CQT kernel matrix and match/align.py. These tests hold each copy
+bit-identical to the original, prove the port imports no jax, and check
 that the kernel build fails loudly without a CUDA toolkit.
 """
 
@@ -18,10 +19,12 @@ import torch
 from hpfw_tpu import oracle
 from hpfw_tpu.config import HpfwConfig as JaxConfig
 from hpfw_tpu.io import synth as jax_synth
+from hpfw_tpu.match import align as jax_align
 from hpfw_tpu.ops import frontend as jax_frontend
 from hpfw_tpu_torch import filters as port_filters
 from hpfw_tpu_torch.config import HpfwConfig as PortConfig
 from hpfw_tpu_torch.io import synth as port_synth
+from hpfw_tpu_torch.match import align as port_align
 from hpfw_tpu_torch.ops import _build
 from hpfw_tpu_torch.ops import frontend as port_frontend
 
@@ -67,6 +70,45 @@ def test_synth_copies_bit_identical():
     for kw in [dict(), dict(noise_db=-15.0, seed=3), dict(noise_db=-5.0, gain=4.0)]:
         np.testing.assert_array_equal(port_synth.make_query(track, 0.7, 1.5, p, **kw),
                                       jax_synth.make_query(track, 0.7, 1.5, j, **kw))
+    for a_seed, t_seed, dur in [(0, 0, 0.5), (3, 7, 1.3), (11, 2, 2.0)]:
+        np.testing.assert_array_equal(port_synth.synth_artist_track(a_seed, t_seed, dur, p),
+                                      jax_synth.synth_artist_track(a_seed, t_seed, dur, j))
+    for a, b in zip(port_synth.synth_artist_catalog(2, 3, 1.0, p),
+                    jax_synth.synth_artist_catalog(2, 3, 1.0, j)):
+        np.testing.assert_array_equal(a, b)
+    for st in (0.5, -1.0, 0.25, 0.0):
+        np.testing.assert_array_equal(port_synth.pitch_shift(track, st, p),
+                                      jax_synth.pitch_shift(track, st, j))
+
+
+@pytest.mark.parametrize("case", ["excerpt", "stretched", "random", "flat", "edge"])
+def test_align_copy_identical(case):
+    """match/align.py's copy gives the original's outputs on seeded inputs:
+    a true excerpt, a 2%-fast one, a random track, a flat (constant) track
+    and an offset near the track's end, at several k, band and tol."""
+    rng = np.random.default_rng(21)
+    track = rng.integers(0, 2 ** 32, (500, 2), dtype=np.uint32)
+    o = 440 if case == "edge" else 80
+    q = track[o:o + 160].copy()
+    if case == "stretched":
+        q = track[np.clip(np.round(o + np.arange(160) * 1.02).astype(int), 0, 499)]
+    elif case == "random":
+        q = rng.integers(0, 2 ** 32, (160, 2), dtype=np.uint32)
+    elif case == "flat":
+        track = np.full((500, 2), 0x0F0F0F0F, np.uint32)
+    for kw in [{}, dict(k=4, band=8, tol=1.0), dict(k=16, band=30, prom_min=0.0),
+               dict(length=470)]:
+        got = port_align.structure_evidence(q, track, o, **kw)
+        want = jax_align.structure_evidence(q, track, o, **kw)
+        assert got.keys() == want.keys()
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{case} {kw} {key}")
+    pos = np.arange(6) * 10
+    d = np.array([0, 1, 1, 9, 2, 2])
+    assert port_align.offset_line_fit(pos, d) == jax_align.offset_line_fit(pos, d)
+    assert port_align.offset_line_fit(pos[:1], d[:1]) == jax_align.offset_line_fit(pos[:1], d[:1])
+    with pytest.raises(ValueError):
+        port_align.subwindow_offsets(q[:3], track, o)
 
 
 def test_fix_eigenvector_signs_identical():
@@ -105,7 +147,8 @@ def test_port_imports_no_jax():
             "hpfw_tpu_torch.ops.fine, hpfw_tpu_torch.match.scaled, "
             "hpfw_tpu_torch.match.stretch, hpfw_tpu_torch.ops.probe, "
             "hpfw_tpu_torch.serve, hpfw_tpu_torch.streaming.session, "
-            "hpfw_tpu_torch.streaming.pool; "
+            "hpfw_tpu_torch.streaming.pool, hpfw_tpu_torch.learn.pca, "
+            "hpfw_tpu_torch.match.align, hpfw_tpu_torch.artist; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hpfw_tpu')]; "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

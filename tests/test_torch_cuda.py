@@ -18,6 +18,7 @@ from hpfw_tpu_torch import ChunkedExtractor, MatchServer, api
 from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.filters import filters_from_jax, fix_eigenvector_signs
 from hpfw_tpu_torch.io import synth
+from hpfw_tpu_torch.learn import pca
 from hpfw_tpu_torch.match import matcher
 from hpfw_tpu_torch.match.scaled import TwoStageDB
 from hpfw_tpu_torch.ops import _build, coarse_scan, fine, frontend, probe
@@ -584,3 +585,81 @@ def test_coarse_and_fine_wrappers_reject_bad_inputs(dev):
                                 torch.zeros((2, 5, 2), dtype=torch.int32, device=dev),
                                 torch.zeros(3, dtype=torch.int32, device=dev), z, z,
                                 n_fine=3)
+
+
+def _plain_on_card(monkeypatch):
+    """Route every CQT and encoder call through the plain versions (on the
+    card too), as the launch counters then show."""
+    monkeypatch.setattr(frontend, "cqt_from_frames", frontend.cqt_from_frames_ref)
+    monkeypatch.setattr(fp_ops, "fingerprint_from_spec", fp_ops.fingerprint_from_spec_ref)
+
+
+@pytest.mark.parametrize("cfg_kw,seconds", [(SMALL, 3.0), ({}, 12.0)])
+def test_accumulate_track_on_card_matches_plain(dev, cfg_kw, seconds, monkeypatch):
+    """Filter learning's moments through K1 against the plain CQT on the
+    card: the same count, X^T X and sum X to rtol 1e-4 (K1 is within 1e-4 of
+    its plain version), and filters within |cos| > 0.98."""
+    cfg = HpfwConfig(**cfg_kw)
+    corpus = [synth.synth_track(50 + i, seconds, cfg) for i in range(2)]
+    _build.reset_launch_counts()
+    state = pca.CovarianceState.zero(cfg)
+    for t in corpus:
+        state = pca.accumulate_track(state, t, cfg, device=dev)
+    assert _build.LAUNCHES["cqt"] == 2
+    with monkeypatch.context() as m:
+        _plain_on_card(m)
+        _build.reset_launch_counts()
+        plain = pca.CovarianceState.zero(cfg)
+        for t in corpus:
+            plain = pca.accumulate_track(plain, t, cfg, device=dev)
+        assert _build.LAUNCHES["cqt"] == 0
+    assert state.count == plain.count == 2 * (cfg.n_frames(len(corpus[0])) - cfg.context_w + 1)
+    np.testing.assert_allclose(state.xtx, plain.xtx, rtol=1e-4)
+    np.testing.assert_allclose(state.xsum, plain.xsum, rtol=1e-4)
+    cos = np.abs(np.sum(pca.finalize_filters(state, cfg).astype(np.float64)
+                        * pca.finalize_filters(plain, cfg), axis=0))
+    assert np.all(cos > 0.98), cos.min()
+
+
+@pytest.mark.parametrize("interp", ["linear", "nearest"])
+def test_scan_identity_row_equals_fingerprint_on_card(dev, interp):
+    """fingerprint_scan_batch on the card at V = 21: the identity row equals
+    fingerprint_batch bit for bit; every variant's K2 prints, the slow
+    hypotheses' repeated clamped last frames included, are within K2's bar of
+    the plain encoder on the same variant spectrum."""
+    cfg = HpfwConfig()
+    filters = _filters(cfg)
+    pcm = np.stack([synth.synth_track(60 + i, 10.0, cfg) for i in range(2)])
+    got = api.fingerprint_scan_batch(pcm, filters, cfg, span=0.03, pitch_span_bins=1,
+                                     interp=interp, device=dev)
+    assert got.shape == (2, 21, cfg.n_hashprints(pcm.shape[1]), 2)
+    np.testing.assert_array_equal(got[:, 10], api.fingerprint_batch(pcm, filters, cfg,
+                                                                    device=dev))
+    filt = filters_from_jax(filters, cfg, dev)
+    hyps = api.scan_hypotheses(cfg, span=0.03, pitch_span_bins=1)
+    spec = frontend.cqt(torch.from_numpy(pcm[0]).to(dev), cfg)
+    for v, sv in enumerate(api.scan_spectra(spec, hyps, interp)):
+        pk = fp_ops.encoder_kernel(sv, filt, cfg)
+        assert np.array_equal(got[0, v], pk.cpu().numpy().view(np.uint32)), v
+        pr = fp_ops.fingerprint_from_spec_ref(sv, filt, cfg)
+        assert _bits(pk, pr) <= max(2, pk.numel() * 32 // 10000), (v, hyps[v])
+
+
+def test_fingerprint_multi_on_card_equals_per_bank(dev):
+    """fingerprint_multi at A = 6 banks: one K1 launch, six K2 launches, each
+    row fingerprint() under its bank bit for bit and within K2's bar of the
+    plain versions."""
+    cfg = HpfwConfig()
+    stack = np.stack([_filters(cfg, seed=s) for s in range(6)])
+    pcm = synth.synth_track(70, 10.0, cfg)
+    _build.reset_launch_counts()
+    multi = api.fingerprint_multi(pcm, stack, cfg, device=dev)
+    assert (_build.LAUNCHES["cqt"], _build.LAUNCHES["fingerprint"]) == (1, 6)
+    assert multi.shape == (6, cfg.n_hashprints(len(pcm)), 2)
+    plain = api.fingerprint_multi(pcm, stack, cfg, device="cpu")
+    for a in range(6):
+        np.testing.assert_array_equal(multi[a], api.fingerprint(pcm, stack[a], cfg,
+                                                                device=dev))
+        assert _bits(torch.from_numpy(multi[a].view(np.int32)),
+                     torch.from_numpy(plain[a].view(np.int32))) <= max(2, multi[a].size
+                                                                       * 32 // 10000)
