@@ -70,8 +70,37 @@ then, on the catalog_scale() catalog, whose rows also hold 16 synthetic
      with equal top hits, every K3, K4 and K5 call of them equal to its plain
      version on the same inputs; fingerprint_multi equal to per-bank
      fingerprint and within K2's gate of the plain versions; build seconds
-     and fingerprint_multi time at A = 6.
-Each path (phases 4, 10, 14-20) runs with the launch counters set to 0 just
+     and fingerprint_multi time at A = 6;
+ 21. the streaming spec scan: StreamingSession over phase 14's packed
+     TwoStageDB with the catalog_scale() config plus stretch_span 0.03 and
+     pitch_span_bins 1 (V = 21), fed a 30 s stream track played 2.9% fast
+     and +0.5 semitone in 0.25 s chunks: it acquires, locks pitch +1 bin and
+     a tempo within a grid step of 1.03, tracks, and names the track; every
+     K2 call within K2's gate and every K4/K5 call equal to its plain
+     version; the same stream through the plain K1/K2/K4/K5 on the card
+     gives the same states and top tracks every feed, and the same window
+     top hit wherever the prints are equal; an in-tempo stream locks at
+     (1.0, 0) and goes rigid-only; a 12 s rendition over phase 4's dense DB
+     (K3 once a hypothesis while acquiring); match and step p50/p99 while
+     acquiring and while tracking;
+ 22. EscalatingMatchServer (V = 21, max_batch 16) over the same DB on phase
+     19's 8 queries, without and with the structure gate: every future
+     equals api.match_scan_escalating on the same PCM (ids, scores,
+     offsets, escalated), alone and together, and the stats agree; then
+     Poisson load at 25 and 50 q/s, a quarter renditions, every served
+     answer equal to its query's answer alone (the spectra's hand-off from
+     the rigid to the scan stream): p50/p99 of confident and escalated
+     queries, achieved q/s, shed share, recall;
+ 23. file ingestion: 64 synthetic 30 s tracks saved as 44.1 kHz stereo WAV,
+     api.build_db_from_files (native decode and resampling, bucket-padded
+     batches of 8) within K2's gate of api.build_db over load_files' PCM, a
+     noisy excerpt of one file found at its offset; seconds of the native
+     build, the decode and the whole build, tracks a second;
+ 24. api.fingerprint_stream over 8 batches of 16 x 240 s: each batch equal
+     to fingerprint_batch bit for bit; its realtime factor (host clock,
+     uploads included) beside the card-resident batch's (CUDA events), in
+     turns.
+Each path (phases 4, 10, 14-24) runs with the launch counters set to 0 just
 before it and read just after; comparison and timing launches are not
 counted, and a plain-version run checks that K1 and K2 did not launch. Kernel times are CUDA events over launches queued behind a
 spin kernel (cuda_ms). The last two lines are a JSON object of per-kernel
@@ -90,6 +119,7 @@ import sys
 import threading
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -116,12 +146,18 @@ POOL_SIZES, CHUNK_PRINTS, QUERY_PRINTS = (8, 16), 32, 128
 POOL_WARM_TICKS, POOL_TICKS = QUERY_PRINTS // CHUNK_PRINTS + 3, 30
 WINDOW_OFFSETS = (0, 1, 37, 113, 4000)      # K2's 32-print windows cut from the 240 s spectrum
 SESSION_SECONDS = 30.0
+LIVE_CHUNK_S, DENSE_LIVE_SECONDS = 0.25, 12.0     # phase 21's feed and dense stream
+ESC_LOADS, ESC_QUERIES = (25.0, 50.0), 120          # phase 22's Poisson loads
+# Phase 23: synthetic tracks saved as 44.1 kHz stereo WAV; phase 24: batches
+# of bench.py's batch and length.
+INGEST_FILES, INGEST_SECONDS, INGEST_RATE, INGEST_SEED, INGEST_QUERY = 64, 30.0, 44100, 9000, 37
+STREAM_BATCHES = 8
 # BASELINE config 5 (benchmarks/config5_learning.py): n_train tracks of
 # track_seconds for learning (:91), artist_eval's catalogs (:44), 8 s queries.
 LEARN_TRACKS, LEARN_SECONDS = 12, 30.0
 ARTISTS, ARTIST_TRACKS, ARTIST_SECONDS, ARTIST_QUERY_SECONDS = 6, 8, 30.0, 8.0
 # The rendition scan: V = 7 tempo factors x 3 bin rolls = 21 hypotheses.
-SCAN_SPAN, SCAN_PITCH_BINS = 0.03, 1
+SCAN_SPAN, SCAN_PITCH_BINS, SCAN_STEP = 0.03, 1, 0.01
 SCAN_IN_TEMPO, SCAN_RENDITIONS, SCAN_SECONDS, RENDITION_SEMITONES = 4, 4, 10.0, 0.5
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, dense
@@ -151,7 +187,7 @@ def nbytes(*tensors) -> int:
 
 
 # Launch counts of every kernel summed over the main-path runs (phases 4, 10,
-# 14-17), each read right after its run.
+# 14-24), each read right after its run.
 PATH_LAUNCHES: Counter = Counter()
 
 
@@ -342,8 +378,8 @@ def main() -> None:
     phase_device()
     phase_build()
     dev = torch.device("cuda", 0)
-    kernels = run(dev)
-    kernels += run_catalog(dev)
+    kernels, dense = run(dev)
+    kernels += run_catalog(dev, dense)
     for k in kernels:
         k["launches"] = PATH_LAUNCHES[k.pop("counter")]
     check(all(k["launches"] > 0 for k in kernels),
@@ -354,9 +390,10 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run(dev: torch.device) -> list[dict]:
+def run(dev: torch.device) -> tuple[list[dict], dict]:
     """Phases 3-7 on dev, once the card is checked and the kernels built.
-    Returns the per-kernel results of K1-K3."""
+    Returns the per-kernel results of K1-K3, and phase 4's DB, tracks and
+    filters and the 240 s track for phases 21 and 24."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
     from hpfw_tpu_torch.filters import filters_from_jax
@@ -655,7 +692,8 @@ def run(dev: torch.device) -> list[dict]:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
         if name == "hashprint_encoder":
             kernels[-1]["differing_bits"] = k2_bits
-    return kernels
+    return kernels, {"db": db, "tracks": tracks, "filters": filters_np, "long_pcm": long_pcm,
+                     "batch_ms": kern_ms}
 
 
 def noisy_excerpt(rng, track_prints, start, n, flip_rate=CFG4_FLIP):
@@ -679,12 +717,14 @@ def timed_pair(kern, plain) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def run_catalog(dev: torch.device) -> list[dict]:
-    """Phases 8-20: BASELINE config 4 through TwoStageDB, under HpfwConfig()
+def run_catalog(dev: torch.device, dense: dict) -> list[dict]:
+    """Phases 8-24: BASELINE config 4 through TwoStageDB, under HpfwConfig()
     and HpfwConfig.catalog_scale(), then the packed pass 1, the server and
     the streaming surfaces on the catalog_scale() catalog, filter learning,
-    the rendition scan on that catalog and known-artist mode. Returns the
-    per-kernel results of K4 (int8 and packed), K5 and the probe."""
+    the rendition scan on that catalog, known-artist mode, the streaming
+    spec scan (also over phase 4's dense DB, `dense`), the escalating server,
+    file ingestion and fingerprint_stream. Returns the per-kernel results of
+    K4 (int8 and packed), K5 and the probe."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
     from hpfw_tpu_torch.filters import filters_from_jax
@@ -889,8 +929,12 @@ def run_catalog(dev: torch.device) -> list[dict]:
     kernels.update(packed_kernels)
     run_serving(ts_p, filters_np, qs_np, truth, stream_pcm, stream_rows)
     run_learning(dev)
-    run_renditions(ts, filters_np, stream_pcm, stream_rows)
+    scan_queries = run_renditions(ts, filters_np, stream_pcm, stream_rows)
     run_artists(dev)
+    run_live_scan(ts_p, filters_np, stream_pcm, stream_rows, dense)
+    run_escalating_server(ts_p, filters_np, *scan_queries)
+    run_ingest(dev, dense)
+    run_stream(dev, dense)
     source = {"fine_rescan": "fine.cu", "row_sum": "probe.cu"}
     replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
                 "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
@@ -1269,10 +1313,10 @@ def run_learning(dev: torch.device) -> None:
         f"bound {gemm_bound[0]:.4f} ms ({gemm_bound[1]}, 67 TFLOP/s float32)")
 
 
-def run_renditions(ts, filters_np, stream_pcm, stream_rows) -> None:
+def run_renditions(ts, filters_np, stream_pcm, stream_rows) -> tuple:
     """Phase 19: identity-first matching with the rendition scan on the
     catalog_scale() TwoStageDB ts, whose rows stream_rows hold the stream
-    tracks."""
+    tracks. Returns the queries' PCM and true track ids."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.filters import filters_from_jax
     from hpfw_tpu_torch.io import synth
@@ -1413,6 +1457,7 @@ def run_renditions(ts, filters_np, stream_pcm, stream_rows) -> None:
         f"K2 alone {k2_ms:.4f} ms; match_batch (host clock, median of 5): rigid {len(pcms)} "
         f"queries {rigid_ms:.3f} ms, escalated {sbatch} x {v} variant rows {esc_ms:.3f} ms "
         f"= {esc_ms / sbatch:.3f} ms a query")
+    return pcms, truths
 
 
 def run_artists(dev: torch.device) -> None:
@@ -1509,6 +1554,428 @@ def run_artists(dev: torch.device) -> None:
         f"{ARTISTS} (K1 + {ARTISTS} x K2, {multi.shape[1]} prints) {multi_ms:.4f} ms by CUDA "
         f"events, {multi_host:.3f} ms a call by host clock (mean of 5, filter upload and "
         f"copies included)")
+
+
+def drive_session(sess, live, chunk: int) -> list[dict]:
+    """Feed live to sess in chunks of `chunk` samples. One record a feed:
+    the lock state after it, the hypothesis, and for a feed that matched,
+    its query window, the scan stack it matched (or None), the state it
+    matched in and its match and step ms."""
+    stacks = []
+    real = sess._scan_stack
+
+    def recorded(n, factors):
+        stacks.append(real(n, factors))
+        return stacks[-1]
+
+    sess._scan_stack = recorded
+    out = []
+    for p in range(0, len(live), chunk):
+        before, n_match, n_stacks = sess._scan_state, len(sess.match_latencies_ms), len(stacks)
+        best = sess.feed(live[p:p + chunk])
+        rec = {"state": (sess._scan_state, sess.tempo, sess.pitch), "best": best,
+               "last": sess.last_match, "matched": len(sess.match_latencies_ms) > n_match}
+        if rec["matched"]:
+            n = max(b for b in sess.query_buckets if b <= len(sess._ring))
+            rec.update(window=np.array(sess._ring, dtype=np.uint32)[-n:],
+                       stack=stacks[-1] if len(stacks) > n_stacks else None, during=before,
+                       match_ms=sess.match_latencies_ms[-1],
+                       step_ms=sess.step_latencies_ms[-1])
+        out.append(rec)
+    del sess._scan_stack
+    return out
+
+
+def session_times(trace) -> str:
+    """Match and step p50/p99 of the matching feeds, by the state each
+    matched in."""
+    parts = []
+    for state in ("acquire", "track"):
+        m = [r["match_ms"] for r in trace if r["matched"] and r["during"] == state]
+        st = [r["step_ms"] for r in trace if r["matched"] and r["during"] == state]
+        if m:
+            parts.append(f"{state} ({len(m)} matches): match p50 {np.percentile(m, 50):.3f} "
+                         f"p99 {np.percentile(m, 99):.3f} ms, step p50 "
+                         f"{np.percentile(st, 50):.3f} p99 {np.percentile(st, 99):.3f} ms")
+    return "; ".join(parts)
+
+
+def rendition(pcm, start_s: float, seconds: float, cfg, seed: int) -> np.ndarray:
+    """A noisy excerpt of pcm played 2.9% fast and +0.5 semitone (phase 19's
+    renditions): a 1.05x longer clip resampled, cut to `seconds`."""
+    from hpfw_tpu_torch.io import synth
+    clip = synth.make_query(pcm, start_s, 1.05 * seconds, cfg, noise_db=-20.0, seed=seed)
+    return synth.pitch_shift(clip, RENDITION_SEMITONES, cfg)[:int(seconds * cfg.sample_rate)]
+
+
+def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> None:
+    """Phase 21: StreamingSession's spec-level tempo and pitch scan on the
+    packed catalog_scale() TwoStageDB ts of phase 14, then over phase 4's
+    dense DB."""
+    import dataclasses
+
+    from hpfw_tpu_torch import StreamingSession, api
+    from hpfw_tpu_torch.ops import fingerprint as fp_ops
+    from unittest import mock
+
+    cfg = dataclasses.replace(ts.db.cfg, stretch_span=SCAN_SPAN, pitch_span_bins=SCAN_PITCH_BINS)
+    v = len(api.scan_hypotheses(cfg))
+    chunk = int(LIVE_CHUNK_S * cfg.sample_rate)
+    i = SCAN_IN_TEMPO + SCAN_RENDITIONS       # a stream track phase 19 did not use
+    want = str(stream_rows[i])
+    live = rendition(stream_pcm[i], 2.0, SESSION_SECONDS, cfg, seed=300)
+    kw = dict(query_prints=QUERY_PRINTS, chunk_prints=CHUNK_PRINTS)
+
+    # The kernels, every K2 call recorded and every K4/K5 call held to its
+    # plain version on the same inputs.
+    k2_calls, held = [], {}
+    real_k2 = fp_ops.fingerprint_from_spec
+
+    def k2_spy(spec, filters, c):
+        out = real_k2(spec, filters, c)
+        k2_calls.append((spec, filters, c, out))
+        return out
+
+    sess = StreamingSession(ts, filters_np, cfg, **kw)
+    start_path()
+    t0 = time.perf_counter()
+    with mock.patch.object(fp_ops, "fingerprint_from_spec", k2_spy), \
+            matcher_held_to_plain(held):
+        trace = drive_session(sess, live, chunk)
+    run_s = time.perf_counter() - t0
+    counts = end_path()
+    worst = 0
+    for spec, filters, c, out in k2_calls:
+        bits = differing_bits(out, fp_ops.fingerprint_from_spec_ref(spec, filters, c))
+        check(bits <= k2_gate(out), f"session K2 on {tuple(spec.shape)}: {bits} differing bits")
+        worst = max(worst, bits)
+    best = trace[-1]["best"]
+    check(best is not None and best.track_id == want, f"rendition session: {best}, want {want}")
+    states = [r["state"] for r in trace if r["matched"]]
+    path = [st for k, st in enumerate(states) if k == 0 or st != states[k - 1]]
+    lock = next((st for st in path if st[0] == "track"), None)
+    check(lock is not None and lock[2] == 1 and abs(lock[1] - 1.03) <= SCAN_STEP + 1e-9
+          and sess._scan_state == "track" and sess.pitch == 1,
+          f"rendition session: state path {path}, want a lock at pitch +1 and a tempo "
+          f"within {SCAN_STEP} of 1.03, tracking at the end")
+    first_acquire = next(r for r in trace if r["matched"] and r["during"] == "acquire"
+                         and r["stack"] is not None)
+    check(first_acquire["stack"].shape[0] == v and all(
+        counts.get(k, 0) > 0 for k in ("cqt", "fingerprint", "coarse_scan_batch_packed",
+                                        "coarse_rescan", "fine_rescan")),
+          f"rendition session launches {counts}: want K1, K2 and the packed matcher's kernels")
+
+    # The same stream through the plain K1/K2/K4/K5 on the card.
+    plain_sess = StreamingSession(ts, filters_np, cfg, **kw)
+    with plain_versions(), plain_matcher():
+        plain = drive_session(plain_sess, live, chunk)
+    same_prints = 0
+    for a, b in zip(trace, plain):
+        check(a["state"] == b["state"] and a["matched"] == b["matched"]
+              and (a["best"] is None) == (b["best"] is None)
+              and (a["best"] is None or a["best"].track_id == b["best"].track_id),
+              f"plain route diverges: {a['state']} {a['best']} vs {b['state']} {b['best']}")
+        if a["matched"] and np.array_equal(a["window"], b["window"]) and (
+                (a["stack"] is None and b["stack"] is None)
+                or (a["stack"] is not None and b["stack"] is not None
+                    and np.array_equal(a["stack"], b["stack"]))):
+            same_prints += 1
+            check(a["last"] == b["last"],
+                  f"equal prints, different answers: {a['last']} vs {b['last']}")
+    n_matches = sum(r["matched"] for r in trace)
+    log(f"phase 21 live scan: {SESSION_SECONDS:.0f} s rendition (+{RENDITION_SEMITONES} st, "
+        f"2.9% fast) of track {want} in {LIVE_CHUNK_S} s chunks, V = {v}: {n_matches} "
+        f"matches, {sum(r['during'] == 'acquire' for r in trace if r['matched'])} acquiring; "
+        f"locked at {lock[1:]}, ends at ({sess.tempo}, {sess.pitch}) -> {best.track_id} score "
+        f"{best.score} offset {best.offset} confidence {best.confidence:.3f}; state path "
+        f"{path}; {run_s:.2f} s")
+    log(f"phase 21 live scan times: {session_times(trace)}; launches {counts}")
+    log(f"phase 21 live scan through the plain K1/K2/K4/K5: the same states and top tracks "
+        f"on all {len(trace)} feeds, the same scores and offsets on the {same_prints} of "
+        f"{n_matches} matches whose prints are equal; {len(k2_calls)} K2 calls within K2's "
+        f"gate (worst {worst} bits); K4/K5 equal to their plain versions on every call ("
+        + ", ".join(f"{k} x {len(sh)}" for k, sh in held.items()) + ")")
+
+    # In tempo: locks at (1.0, 0) and then matches rigid only.
+    sess = StreamingSession(ts, filters_np, cfg, **kw)
+    live = stream_pcm[i + 1][:int(SESSION_SECONDS * cfg.sample_rate)]
+    start_path()
+    trace = drive_session(sess, live, chunk)
+    counts = end_path()
+    best = trace[-1]["best"]
+    check(best is not None and best.track_id == str(stream_rows[i + 1])
+          and (sess._scan_state, sess.tempo, sess.pitch) == ("track", 1.0, 0)
+          and sess._scan_factors() == (),
+          f"in-tempo session: {best}, state {sess._scan_state} ({sess.tempo}, {sess.pitch})")
+    n_scanned = sum(r["stack"] is not None for r in trace if r["matched"])
+    log(f"phase 21 live scan in tempo: -> {best.track_id} score {best.score}, locked at "
+        f"(1.0, 0), rigid only after the lock ({n_scanned} scanned matches of "
+        f"{sum(r['matched'] for r in trace)}); {session_times(trace)}; "
+        f"launches {counts}")
+
+    # Over phase 4's dense DB: K3 once a hypothesis while acquiring.
+    dcfg = dataclasses.replace(dense["db"].cfg, stretch_span=SCAN_SPAN,
+                               pitch_span_bins=SCAN_PITCH_BINS)
+    live = rendition(dense["tracks"][QUERY_TRACK], 3.0, DENSE_LIVE_SECONDS, dcfg, seed=301)
+    sess = StreamingSession(dense["db"], dense["filters"], dcfg, **kw)
+    start_path()
+    trace = drive_session(sess, live, chunk)
+    counts = end_path()
+    best = trace[-1]["best"]
+    n_scans = sum(0 if r.get("stack") is None else r["stack"].shape[0] for r in trace)
+    check(best is not None and best.track_id == str(QUERY_TRACK)
+          and counts.get("score_tracks", 0) >= n_scans >= v,
+          f"dense live scan: {best}, launches {counts}, {n_scans} scanned variants")
+    log(f"phase 21 dense live scan: {DENSE_LIVE_SECONDS:.0f} s rendition of track "
+        f"{QUERY_TRACK} over phase 4's {dense['db'].n_tracks}-track DB -> {best.track_id}, "
+        f"state ({sess._scan_state}, {sess.tempo}, {sess.pitch}); {n_scans} variant K3 "
+        f"scans; {session_times(trace)}; launches {counts}")
+
+
+def same_answer(a, b) -> bool:
+    """Two (ids, scores, offsets[, escalated]) answers are identical."""
+    return (list(a[0]) == list(b[0]) and np.array_equal(a[1], b[1])
+            and np.array_equal(a[2], b[2]) and a[3:] == b[3:])
+
+
+def run_escalating_load(srv, pcms, expect, truths, lam, rng, n_queries, renditions) -> dict:
+    """n_queries PCM windows with exponential gaps at lam queries/s, a quarter
+    of them renditions; every served answer must equal expect[i] for its
+    query i (its answer served alone). Recall: served answers whose top track
+    is truths[i]."""
+    from hpfw_tpu_torch import ServerSaturated
+
+    in_tempo = [i for i in range(len(pcms)) if i not in renditions]
+    picks = [int(rng.choice(renditions if rng.random() < 0.25 else in_tempo))
+             for _ in range(n_queries)]
+    lat = {False: [], True: []}
+    shed, errors, wrong, hits = [0], [], [], [0]
+    lock = threading.Lock()
+    pending = [n_queries]
+    all_done = threading.Event()
+
+    def callback(i, t_sub):
+        def done(fut):
+            exc = fut.exception()
+            with lock:
+                if exc is None:
+                    r = fut.result()
+                    lat[r[3]].append((time.perf_counter() - t_sub) * 1e3)
+                    if not same_answer(r, expect[i]):
+                        wrong.append(i)
+                    hits[0] += r[0][0] == truths[i]
+                elif isinstance(exc, ServerSaturated):
+                    shed[0] += 1
+                else:
+                    errors.append(repr(exc))
+                pending[0] -= 1
+                if pending[0] == 0:
+                    all_done.set()
+        return done
+
+    gaps = rng.exponential(1.0 / lam, n_queries)
+    t_start = time.perf_counter()
+    for k, i in enumerate(picks):
+        t_sub = time.perf_counter()
+        srv.submit(pcms[i]).add_done_callback(callback(i, t_sub))
+        time.sleep(max(0.0, gaps[k]))
+    check(all_done.wait(timeout=300), f"offered {lam} q/s: not every query was answered")
+    wall = time.perf_counter() - t_start
+    check(not errors, f"offered {lam} q/s: futures failed: {errors[:3]}")
+    check(not wrong, f"offered {lam} q/s: answers of queries {sorted(set(wrong))} differ from "
+          "the same query served alone")
+    served = n_queries - shed[0]
+
+    def pct(xs, q):
+        return float(np.percentile(xs, q)) if xs else float("nan")
+
+    return {"n": n_queries, "achieved": served / wall, "shed": shed[0] / n_queries,
+            "recall": hits[0] / max(served, 1), "renditions": sum(
+                i in renditions for i in picks),
+            "confident": (len(lat[False]), pct(lat[False], 50), pct(lat[False], 99)),
+            "escalated": (len(lat[True]), pct(lat[True], 50), pct(lat[True], 99))}
+
+
+def run_escalating_server(ts, filters_np, pcms, truths) -> None:
+    """Phase 22: EscalatingMatchServer over the packed catalog_scale()
+    TwoStageDB ts (phase 14), on phase 19's 8 queries (V = 21)."""
+    from hpfw_tpu_torch import EscalatingMatchServer, api
+
+    cfg = ts.db.cfg
+    kw = dict(span=SCAN_SPAN, pitch_span_bins=SCAN_PITCH_BINS)
+    renditions = list(range(SCAN_IN_TEMPO, len(pcms)))
+    for gate in (None, 0.75):
+        stats_api: dict = {}
+        want = api.match_scan_escalating(pcms, filters_np, ts, cfg, structure_gate=gate,
+                                         stats=stats_api, **kw)
+        start_path()
+        with EscalatingMatchServer(ts, filters_np, pcms.shape[1], max_batch=16,
+                                   structure_gate=gate, **kw) as srv:
+            t0 = time.perf_counter()
+            srv.warmup(pcms[0])
+            warm_s = time.perf_counter() - t0
+            got = [f.result(timeout=120) for f in [srv.submit(p) for p in pcms]]
+            alone = [srv.match(p) for p in pcms]
+            stats = dict(srv.stats)
+            counts = end_path()
+            flags = [i for i, r in enumerate(got) if r[3]]
+            check(all(same_answer(g[:3], w) for g, w in zip(got, want))
+                  and flags == stats_api["escalated"]
+                  and all(same_answer(g, a) for g, a in zip(got, alone)),
+                  f"structure_gate {gate}: the server's answers differ from "
+                  f"match_scan_escalating's (escalated {flags} vs {stats_api['escalated']})")
+            check([g[0][0] for g in got] == truths, f"server top {[g[0][0] for g in got]}")
+            check(stats["submitted"] == 2 * len(pcms)
+                  and stats["confident"] + stats["structure_kept"] + stats["escalated"]
+                  == stats["submitted"]
+                  and stats["escalated"] == 2 * len(stats_api["escalated"])
+                  and stats["structure_kept"] == 2 * len(stats_api["structure_kept"])
+                  and stats["overridden"] == 2 * len(stats_api["overridden"]),
+                  f"structure_gate {gate}: stats {stats} vs match_scan_escalating's "
+                  f"{stats_api} (each query submitted twice)")
+            check(all(counts.get(k, 0) > 0 for k in ("cqt", "fingerprint",
+                                                      "coarse_scan_batch_packed",
+                                                      "coarse_rescan", "fine_rescan")),
+                  f"server launches {counts}: a kernel of the path never ran")
+            log(f"phase 22 escalating server (structure_gate {gate}): warmup {warm_s:.2f} s; "
+                f"{len(pcms)} queries together and alone == match_scan_escalating (ids, "
+                f"scores, offsets, escalated {flags}); stats {stats}; launches {counts}")
+            if gate is not None:
+                continue
+            rng = np.random.default_rng(2)
+            for lam in ESC_LOADS:
+                start_path()
+                r = run_escalating_load(srv, pcms, got, truths, lam, rng, ESC_QUERIES,
+                                        renditions)
+                counts = end_path()
+                c, e = r["confident"], r["escalated"]
+                log(f"phase 22 offered {lam:.0f} q/s ({r['n']} queries, {r['renditions']} "
+                    f"renditions): confident {c[0]} p50 {c[1]:.3f} p99 {c[2]:.3f} ms, "
+                    f"escalated {e[0]} p50 {e[1]:.3f} p99 {e[2]:.3f} ms; achieved "
+                    f"{r['achieved']:.1f} q/s, shed {r['shed']:.1%}, recall {r['recall']:.3f} "
+                    f"(every served answer == the query's answer alone); launches {counts}")
+
+
+def run_ingest(dev: torch.device, dense: dict) -> None:
+    """Phase 23: api.build_db_from_files over 64 synthetic 30 s tracks saved
+    as 44.1 kHz stereo WAV (downmix and sinc resampling run), against
+    api.build_db over load_files' PCM."""
+    import tempfile
+    from pathlib import Path
+
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.io import ingest, native, synth, wav
+
+    cfg = HpfwConfig()
+    filters_np = dense["filters"]
+    t0 = time.perf_counter()
+    lib = native.build_library()
+    native.load_library()
+    native_s = time.perf_counter() - t0
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as d:
+        t0 = time.perf_counter()
+        paths = [str(Path(d) / f"track{k:02d}.wav") for k in range(INGEST_FILES)]
+
+        def write(k):
+            left = wav.resample(synth.synth_track(INGEST_SEED + k, INGEST_SECONDS, cfg),
+                                cfg.sample_rate, INGEST_RATE)
+            wav.save_wav(paths[k], np.stack([left, 0.6 * left], axis=1), INGEST_RATE)
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(write, range(INGEST_FILES)))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pcms = ingest.load_files(paths, cfg)
+        decode_s = time.perf_counter() - t0
+        start_path()
+        t0 = time.perf_counter()
+        db = api.build_db_from_files(paths, filters_np, cfg, batch=8, device=dev)
+        build_s = time.perf_counter() - t0
+        counts = end_path()
+    check(counts == {"cqt": INGEST_FILES, "fingerprint": INGEST_FILES},
+          f"build_db_from_files launches {counts}, want K1 and K2 {INGEST_FILES} times each")
+    direct = api.build_db(dict(zip(paths, pcms)), filters_np, cfg, device=dev)
+    check(db.track_ids == direct.track_ids and np.array_equal(db.lengths, direct.lengths),
+          "build_db_from_files: ids or lengths differ from build_db")
+    bits = []
+    for t in range(len(paths)):
+        n = int(db.lengths[t])
+        a, b = db.prints[t, :n], direct.prints[t, :n]
+        bits.append(int(np.bitwise_count(a ^ b).sum()))
+        check(n > 0 and bits[-1] <= k2_gate(torch.from_numpy(a)),
+              f"file {t}: {bits[-1]} bits differ from build_db's prints")
+    q = synth.make_query(pcms[INGEST_QUERY], 7.0, QUERY_SECONDS, cfg, noise_db=-20.0, seed=23)
+    ids, scores, offs = api.match(api.fingerprint(q, filters_np, cfg, device=dev), db, top_k=2)
+    exp_off = round(7.0 * cfg.sample_rate / cfg.hop)
+    check(ids[0] == paths[INGEST_QUERY] and abs(int(offs[0]) - exp_off) <= 1,
+          f"file query: top {ids[0]} at {offs[0]}, want {paths[INGEST_QUERY]} at {exp_off}")
+    audio_s = INGEST_FILES * INGEST_SECONDS
+    log(f"phase 23 ingest: {INGEST_FILES} x {INGEST_SECONDS:.0f} s stereo {INGEST_RATE} Hz "
+        f"WAV ({write_s:.2f} s to write); native library {lib.parent.name} ready in "
+        f"{native_s:.2f} s; load_files alone {decode_s:.2f} s; build_db_from_files "
+        f"{build_s:.2f} s = {INGEST_FILES / build_s:.1f} tracks/s = "
+        f"{audio_s / build_s:.0f}x realtime (host clock, decode and extraction overlapped); "
+        f"prints vs build_db: {sum(b == 0 for b in bits)}/{len(bits)} tracks identical, "
+        f"{sum(bits)} bits in all; noisy excerpt -> {Path(ids[0]).name} @ {int(offs[0])} "
+        f"score {int(scores[0])}; launches {counts}")
+
+
+def run_stream(dev: torch.device, dense: dict) -> None:
+    """Phase 24: api.fingerprint_stream over 8 batches of 16 x 240 s against
+    fingerprint_batch, and its realtime factor beside phase 7's."""
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.filters import filters_from_jax
+
+    cfg = HpfwConfig()
+    long_pcm, filters_np = dense["long_pcm"], dense["filters"]
+    step = len(long_pcm) // (STREAM_BATCHES * BATCH)
+    # In host memory before any timing (2.7 GB): the stream's cost, not the
+    # making of its input.
+    batches = [np.stack([np.roll(long_pcm, (i * BATCH + j) * step) for j in range(BATCH)])
+               for i in range(STREAM_BATCHES)]
+    start_path()
+    t0 = time.perf_counter()
+    got = list(api.fingerprint_stream(iter(batches), filters_np, cfg, device=dev))
+    first_s = time.perf_counter() - t0
+    counts = end_path()
+    n_rows = STREAM_BATCHES * BATCH
+    check(counts == {"cqt": n_rows, "fingerprint": n_rows},
+          f"fingerprint_stream launches {counts}, want K1 and K2 {n_rows} times each")
+    for i, (g, b) in enumerate(zip(got, batches)):
+        check(np.array_equal(g, api.fingerprint_batch(b, filters_np, cfg, device=dev)),
+              f"fingerprint_stream batch {i} differs from fingerprint_batch")
+    check(len(got) == STREAM_BATCHES, f"{len(got)} batches yielded")
+    del got
+
+    # In turns: the extraction of phase 7 on card-resident rows (CUDA
+    # events), the stream (host clock, uploads and copies included).
+    filt = filters_from_jax(filters_np, cfg, dev)
+    resident = torch.from_numpy(batches[0]).to(dev)
+
+    def stream_s() -> float:
+        t1 = time.perf_counter()
+        for _ in api.fingerprint_stream(iter(batches), filters_np, cfg, device=dev):
+            pass
+        return time.perf_counter() - t1
+
+    def resident_ms() -> float:
+        return cuda_ms(lambda: api.fingerprint_batch_device(resident, filt, cfg),
+                       min_total_ms=1000.0, max_reps=5)
+
+    r1, s1, s2, r2 = resident_ms(), stream_s(), stream_s(), resident_ms()
+    audio_s = n_rows * LONG_SECONDS
+    batch_audio = BATCH * LONG_SECONDS
+    log(f"phase 24 fingerprint_stream: {STREAM_BATCHES} batches of {BATCH} x "
+        f"{LONG_SECONDS:.0f} s, each == fingerprint_batch bit for bit; launches {counts}; "
+        f"in turns: card-resident batch {r1:.2f}/{r2:.2f} ms = "
+        f"{batch_audio / (r1 / 1e3):.0f}x/{batch_audio / (r2 / 1e3):.0f}x realtime (phase 7 "
+        f"read {batch_audio / (dense['batch_ms'] / 1e3):.0f}x), stream {s1:.3f}/{s2:.3f} s "
+        f"= {audio_s / s1:.0f}x/{audio_s / s2:.0f}x realtime (host clock, uploads and "
+        f"copies included; the first pass {first_s:.3f} s)")
 
 
 if __name__ == "__main__":

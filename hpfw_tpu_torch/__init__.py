@@ -10,31 +10,35 @@ Public surface (the slice of hpfw_tpu's that is ported so far):
     fingerprint(audio)    -> hashprint sequence
     match(query, db)      -> ranked track IDs
     build_db / FingerprintDB.save/load
+    build_db_from_files(paths) -> FingerprintDB          (native decode, io/ingest.py)
+    fingerprint_stream(batches) -> hashprints            (two batches in flight)
     TwoStageDB(db).match / match_batch / save / load   (catalog scale)
     MatchServer(ts, n).submit -> future                 (serving)
-    StreamingSession / StreamingPool .feed -> hypotheses (live ID, rigid)
+    EscalatingMatchServer(ts, filters, samples).submit   (PCM-in serving with escalation)
+    StreamingSession .feed -> hypotheses                 (live ID, tempo/pitch scan)
+    StreamingPool .feed -> hypotheses                    (many streams, rigid)
     ChunkedExtractor.feed -> hashprints                  (streaming extraction)
     learn_filters(corpus) -> projection filters
     fingerprint_scan_batch / match_scan_escalating       (rendition scans)
     fingerprint_multi, ArtistDB                          (known-artist mode)
 """
 
-from .api import (FingerprintDB, build_db, fingerprint, fingerprint_multi,
-                  fingerprint_scan_batch, learn_filters, match, match_scan_escalating,
-                  scan_hypotheses)
+from .api import (FingerprintDB, build_db, build_db_from_files, fingerprint,
+                  fingerprint_multi, fingerprint_scan_batch, fingerprint_stream,
+                  learn_filters, match, match_scan_escalating, scan_hypotheses)
 from .artist import ArtistDB
 from .config import DEFAULT_CONFIG, HpfwConfig
 from .match.scaled import TwoStageDB
-from .serve import MatchServer, ServerSaturated
+from .serve import EscalatingMatchServer, MatchServer, ServerSaturated
 from .streaming.pool import StreamingPool
 from .streaming.session import ChunkedExtractor, StreamingSession
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "FingerprintDB", "TwoStageDB", "build_db", "fingerprint", "match",
-    "learn_filters", "fingerprint_scan_batch", "scan_hypotheses",
-    "match_scan_escalating", "fingerprint_multi", "ArtistDB",
-    "MatchServer", "ServerSaturated", "StreamingPool", "StreamingSession",
-    "ChunkedExtractor", "HpfwConfig", "DEFAULT_CONFIG", "__version__",
+    "FingerprintDB", "TwoStageDB", "build_db", "build_db_from_files", "fingerprint",
+    "fingerprint_stream", "match", "learn_filters", "fingerprint_scan_batch",
+    "scan_hypotheses", "match_scan_escalating", "fingerprint_multi", "ArtistDB",
+    "MatchServer", "EscalatingMatchServer", "ServerSaturated", "StreamingPool",
+    "StreamingSession", "ChunkedExtractor", "HpfwConfig", "DEFAULT_CONFIG", "__version__",
 ]

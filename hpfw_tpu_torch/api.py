@@ -3,6 +3,8 @@
     fingerprint(audio)      -> hashprint sequence
     match(query, db)        -> ranked track IDs
     build_db(catalog)       -> FingerprintDB
+    build_db_from_files(paths) -> FingerprintDB (native decode, io/ingest.py)
+    fingerprint_stream(batches) -> hashprints, two batches in flight
     learn_filters(corpus)   -> projection filters
 
 plus the rendition scans (fingerprint_scan_batch, match_scan_escalating over
@@ -10,10 +12,10 @@ a TwoStageDB) and multi-bank extraction for known-artist mode
 (fingerprint_multi, artist.ArtistDB). Functions take and return numpy with
 the shapes and dtypes of hpfw_tpu.api (prints are (N, 2) uint32). Work runs
 on the `device` argument, else the device of the filters tensor or DB passed
-in, else the card when torch sees one: the CPU only when the caller asks for
-it or there is no card. On a CUDA device the hot path is the kernels in
-csrc/; on the CPU it is their plain PyTorch versions. Nothing falls back
-from one to the other.
+in, else the card; with no card and no device named, an entry point raises,
+so the CPU runs only when the caller asks for it. On a CUDA device the hot
+path is the kernels in csrc/; on the CPU it is their plain PyTorch
+versions. Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -33,9 +35,14 @@ from .ops import frontend, fused
 
 
 def default_device() -> torch.device:
-    """Where work runs when the caller names no device: the card when torch
-    sees one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """Where work runs when the caller names no device: the card. Raises when
+    torch sees no card; work runs on the CPU only when the caller passes
+    device="cpu" (or CPU tensors)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible to torch; pass device=\"cpu\" to run the plain "
+            "PyTorch versions on the CPU")
+    return torch.device("cuda")
 
 
 def _resolve_device(device, filters) -> torch.device:
@@ -130,6 +137,74 @@ def fingerprint_batch(
     dev = _resolve_device(device, filters)
     out = fingerprint_batch_device(torch.from_numpy(pcms).to(dev),
                                    _filters_on(filters, cfg, dev), cfg)
+    return _to_numpy_prints(out)
+
+
+def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on device: from pinned memory without blocking on a card."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _to_host(out_dev: torch.Tensor, stream):
+    """Start the copy of a result to the host: (host tensor, event to wait on
+    or None). On a card, a non-blocking copy into fresh pinned memory, then
+    an event recorded on `stream`; no sync. On the CPU, out_dev itself."""
+    if stream is None:
+        return out_dev, None
+    out = torch.empty(out_dev.shape, dtype=out_dev.dtype, pin_memory=True)
+    out.copy_(out_dev, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(stream)
+    return out, ready
+
+
+def _wait(ready) -> None:
+    if ready is not None:
+        ready.synchronize()
+
+
+def fingerprint_stream(
+    batches,
+    filters,
+    cfg: HpfwConfig = DEFAULT_CONFIG,
+    *,
+    device: str | torch.device | None = None,
+):
+    """Fingerprint an iterator of (B, S) PCM batches with two batches in
+    flight; yields (B, N, 2) uint32 a batch, in order.
+
+    On a card, batch i + 1 uploads from pinned memory on a copy stream while
+    batch i computes on the current stream (the compute stream waits for the
+    upload's event), and each result comes back by a non-blocking copy into
+    pinned memory: the generator waits only for the batch it yields. On the
+    CPU the same code runs with no streams.
+    """
+    dev = _resolve_device(device, filters)
+    filt = _filters_on(filters, cfg, dev)
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    pending: list[tuple[torch.Tensor, torch.cuda.Event | None]] = []
+    for batch in batches:
+        host = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
+        if host.dim() != 2:
+            raise ValueError(f"expected (B, S) PCM batches, got shape {tuple(host.shape)}")
+        pcms, compute = host, None
+        if copy_stream is not None:
+            compute = torch.cuda.current_stream(dev)
+            with torch.cuda.stream(copy_stream):
+                pcms = _upload(host, dev)
+            compute.wait_stream(copy_stream)
+            pcms.record_stream(compute)      # read on compute, made on the copy stream
+        pending.append(_to_host(fingerprint_batch_device(pcms, filt, cfg), compute))
+        if len(pending) >= 2:
+            yield _take(*pending.pop(0))
+    for item in pending:
+        yield _take(*item)
+
+
+def _take(out: torch.Tensor, ready) -> np.ndarray:
+    _wait(ready)
     return _to_numpy_prints(out)
 
 
@@ -483,7 +558,7 @@ class FingerprintDB:
 
     Saves and loads the same format_version=1 .npz as hpfw_tpu.api's
     FingerprintDB, and holds its device arrays on `device` (default: the
-    card when torch sees one).
+    card; raises when torch sees none).
     """
 
     def __init__(self, cfg: HpfwConfig, filters: np.ndarray,
@@ -564,3 +639,63 @@ def build_db(
     prints, lengths = matcher.pad_prints(fps, min_len=1)
     host_filters = filt.cpu().numpy()
     return FingerprintDB(cfg, host_filters, ids, prints, lengths, device=dev)
+
+
+def build_db_from_files(
+    paths: list[str],
+    filters,
+    cfg: HpfwConfig = DEFAULT_CONFIG,
+    *,
+    n_threads: int = 0,
+    batch: int = 8,
+    bucket_seconds: float = 30.0,
+    track_ids: list[str] | None = None,
+    progress=None,
+    device: str | torch.device | None = None,
+) -> FingerprintDB:
+    """Fingerprint a catalog of audio files into a matchable database.
+
+    The threaded native decoder (io/ingest.load_files) decodes and resamples
+    chunk i + 1 on a host thread while chunk i extracts on device. A chunk's
+    tracks are sorted by length, zero-padded up to a multiple of
+    `bucket_seconds` and extracted `batch` rows at a time
+    (fingerprint_batch_device; on a card each group uploads from pinned
+    memory); each row keeps the cfg.n_hashprints of its true length, which
+    depend only on samples inside it. track_ids default to the paths;
+    progress(done, total) is called after each chunk.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .io.ingest import load_files
+
+    dev = _resolve_device(device, filters)
+    filt = _filters_on(filters, cfg, dev)
+    bucket = max(int(bucket_seconds * cfg.sample_rate), cfg.min_samples())
+    fps: list[np.ndarray | None] = [None] * len(paths)
+    chunk = max(batch * 4, 32)
+    with ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(load_files, list(paths[:chunk]), cfg, n_threads)
+        start = 0
+        while start < len(paths):
+            pcms = fut.result()
+            nxt = start + len(pcms)
+            if nxt < len(paths):
+                fut = ex.submit(load_files, list(paths[nxt:nxt + chunk]), cfg, n_threads)
+            order = sorted(range(len(pcms)), key=lambda i: pcms[i].shape[0])
+            for g0 in range(0, len(order), batch):
+                grp = order[g0:g0 + batch]
+                longest = max(pcms[i].shape[0] for i in grp)
+                s = -(-max(longest, cfg.min_samples()) // bucket) * bucket
+                arr = np.zeros((len(grp), s), np.float32)
+                for row, i in enumerate(grp):
+                    arr[row, : pcms[i].shape[0]] = pcms[i]
+                out = _to_numpy_prints(fingerprint_batch_device(
+                    _upload(torch.from_numpy(arr), dev), filt, cfg))
+                for row, i in enumerate(grp):
+                    fps[start + i] = out[row, : cfg.n_hashprints(pcms[i].shape[0])]
+            if progress is not None:
+                progress(nxt, len(paths))
+            start = nxt
+    ids = list(track_ids) if track_ids is not None else [str(p) for p in paths]
+    prints, lengths = matcher.pad_prints(fps, min_len=1)
+    return FingerprintDB(cfg, filt.cpu().numpy(), ids, prints, lengths, device=dev)

@@ -27,8 +27,8 @@ class ArtistDB:
     """Per-artist fingerprint databases sharing one config, on one device.
 
     banks: artist name -> FingerprintDB (each carries its own filters); a
-    bank on another device is re-homed to `device` (default: the card when
-    torch sees one). scaled=True backs each artist with a TwoStageDB
+    bank on another device is re-homed to `device` (default: the card;
+    raises when torch sees none). scaled=True backs each artist with a TwoStageDB
     (coarse scan + exact fine rescan, K4 and K5 on the card), derived on the
     artist's first match; `stride` applies to every bank. `mesh=` (a sharded
     TwoStageDB) is not ported yet.
@@ -71,7 +71,7 @@ class ArtistDB:
               *, corpus_by_artist: dict | None = None,
               device: str | torch.device | None = None, **db_kw) -> "ArtistDB":
         """Learn one filter bank per artist and fingerprint their catalog,
-        on device (default: the card when torch sees one).
+        on device (default: the card; raises when torch sees none).
 
         catalog_by_artist: artist -> {track_id: pcm} or [pcm, ...].
         corpus_by_artist: optional separate training audio per artist

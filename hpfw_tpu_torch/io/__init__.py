@@ -1,1 +1,2 @@
-"""Audio fixtures for the PyTorch port (the codecs stay in hpfw_tpu.io)."""
+"""Audio I/O for the PyTorch port: synthetic fixtures, file decode (native
+library) and batch ingestion; the pure-NumPy codecs stay in hpfw_tpu.io."""

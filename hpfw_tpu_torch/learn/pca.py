@@ -52,7 +52,7 @@ class CovarianceState:
 def accumulate_track(state: CovarianceState, pcm: np.ndarray, cfg: HpfwConfig, *,
                      device: str | torch.device | None = None) -> CovarianceState:
     """Fold one training track into the covariance accumulator; the track's
-    work runs on device (default: the card when torch sees one)."""
+    work runs on device (default: the card; raises when torch sees none)."""
     pcm = np.asarray(pcm, dtype=np.float32).reshape(-1)
     if cfg.n_frames(pcm.shape[0]) < cfg.context_w:
         return state

@@ -335,8 +335,8 @@ class TwoStageDB:
     @classmethod
     def load(cls, path: str, *,
              device: str | torch.device | None = None) -> "TwoStageDB":
-        """Rebuild a TwoStageDB on device (default: the card when torch sees
-        one) from a save() directory of either package, without re-deriving.
+        """Rebuild a TwoStageDB on device (default: the card; raises
+        when torch sees none) from a save() directory of either package, without re-deriving.
 
         Every single-device layout of the reference loads: flat coarse rows
         and word planes (use_pallas_fine and use_pallas_coarse, what it

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -31,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libhpfw_kernels.so"
 
+# Launches counted by launch(), which dispatcher threads call concurrently.
+_LAUNCHES_LOCK = threading.Lock()
 LAUNCHES = {"cqt": 0, "fingerprint": 0, "score_tracks": 0, "coarse_scan": 0,
             "coarse_scan_batch": 0, "coarse_scan_batch_packed": 0, "coarse_rescan": 0,
             "fine_rescan": 0, "row_sum": 0}
@@ -140,7 +143,8 @@ def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
     if code != 0:
         msg = lib.hpfw_error_string(code).decode()
         raise RuntimeError(f"{name} kernel failed: {msg} (cudaError {code})")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

@@ -35,6 +35,8 @@ _MASK32 = 0xFFFFFFFF
 # Elements (queries x candidates x query prints) per block of the plain
 # rescan, which bounds each int64 temporary to some 64 MB.
 REF_BLOCK_ELEMS = 1 << 22
+# Queries a K5 launch takes (its grid's y dimension).
+MAX_QUERIES = 65535
 
 
 def fine_rescan_ref(queries: torch.Tensor, prints: torch.Tensor,
@@ -100,8 +102,8 @@ def fine_rescan_kernel(queries: torch.Tensor, prints: torch.Tensor,
                          f"{tuple(cand_tracks.shape)}, {tuple(cand_starts.shape)}")
     if n_fine < 1:
         raise ValueError(f"n_fine must be >= 1, got {n_fine}")
-    if b > 65535:
-        raise ValueError(f"at most 65535 queries a launch, got {b}")
+    if b > MAX_QUERIES:
+        raise ValueError(f"at most {MAX_QUERIES} queries a launch, got {b}")
     if queries.data_ptr() % 8 or prints.data_ptr() % 8:
         raise ValueError("queries and prints must be 8-byte aligned (uint2 loads)")
     k = cand_tracks.shape[1]

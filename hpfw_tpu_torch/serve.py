@@ -1,10 +1,11 @@
-"""Micro-batching match server: the serving loop around the batched matcher.
+"""Micro-batching match servers: the serving loops around the batched matcher.
 
-Counterpart of hpfw_tpu/serve.py's ServerSaturated and MatchServer. Callers
-submit queries from any thread and get futures; one dispatcher thread groups
-up to `max_batch` queries (waiting at most `max_wait_ms` for the batch to
-fill), issues ONE TwoStageDB.dispatch_batch per group, and a pool of
-`rank_workers` threads waits for each result and ranks it on the host.
+Counterpart of hpfw_tpu/serve.py's ServerSaturated, MatchServer and
+EscalatingMatchServer. Callers submit queries from any thread and get
+futures; a dispatcher thread groups up to `max_batch` queries (waiting at
+most `max_wait_ms` for the batch to fill), issues ONE TwoStageDB.dispatch_batch
+per group, and a pool of `rank_workers` threads waits for each result and
+ranks it on the host.
 
   - Batches are bucketed in powers of 4 up to max_batch and padded with the
     last query; the pad rows are dropped before ranking.
@@ -13,14 +14,14 @@ fill), issues ONE TwoStageDB.dispatch_batch per group, and a pool of
   - The submit queue is bounded (`max_queue`): a full queue fails the
     submission with ServerSaturated (after blocking `submit_timeout_ms`, if
     set) instead of building unbounded latency.
-  - Queries share one print length (`query_prints`); a wrong length, or a
-    submit after close(), fails fast.
+  - Queries share one length; a wrong length, or a submit after close(),
+    fails fast.
 
-On a CUDA device the dispatcher thread owns a torch.cuda.Stream, made
+On a CUDA device each dispatcher thread owns a torch.cuda.Stream, made
 current for its launches; the stream waits once for the stream that built
 the DB. Each batch uploads from pinned host memory without blocking, and its
 (B, 3, K) result comes back by a non-blocking copy into a fresh pinned buffer
-plus a recorded event, which the rank worker waits on: the dispatcher never
+plus a recorded event, which the rank worker waits on: a dispatcher never
 synchronises, so consecutive batches pipeline on the device. On the CPU the
 same code runs with no streams.
 """
@@ -36,11 +37,88 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from . import api
 from .match.scaled import _rank_dedup
+from .ops import fine, frontend
+from .ops import fingerprint as fp_ops
 
 
 class ServerSaturated(RuntimeError):
     """Submit queue is full: the server is shedding load."""
+
+
+def _bucket(n: int, cap: int) -> int:
+    """The padded batch size of n queries: the next power of 4, at most cap."""
+    b = 1
+    while b < n:
+        b *= 4
+    return min(b, cap)
+
+
+def _collect(q: queue.Queue, max_n: int, max_wait: float, first_wait: float | None = None):
+    """Block for one item (at most first_wait seconds, if given), then soak
+    up to max_n within max_wait. [] on a timeout or the close marker."""
+    try:
+        item = q.get() if first_wait is None else q.get(timeout=first_wait)
+    except queue.Empty:
+        return []
+    if item is None:
+        return []
+    batch = [item]
+    deadline = time.monotonic() + max_wait
+    while len(batch) < max_n:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            break
+        try:
+            nxt = q.get(timeout=left)
+        except queue.Empty:
+            break
+        if nxt is None:
+            break
+        batch.append(nxt)
+    return batch
+
+
+def _acquire(slots: threading.Semaphore, stop: threading.Event) -> bool:
+    """Take one of the `depth` device slots, polling the stop flag: False
+    once the server is closing."""
+    while not stop.is_set():
+        if slots.acquire(timeout=0.1):
+            return True
+    return False
+
+
+def _fail(futs, exc) -> None:
+    for fut in futs:
+        if fut.set_running_or_notify_cancel():
+            fut.set_exception(exc)
+
+
+def _drain(q: queue.Queue) -> None:
+    """Fail every future still queued after close(); an item's future is its
+    last element."""
+    while True:
+        try:
+            item = q.get_nowait()
+        except queue.Empty:
+            break
+        if item is not None:
+            _fail([item[-1]], RuntimeError("server closed"))
+
+
+def _new_stream(device: torch.device):
+    """A dispatcher's stream, ordered after the work queued so far on the
+    current stream (the DB's build); None on the CPU."""
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    return stream
+
+
+def _on(stream):
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
 class MatchServer:
@@ -60,11 +138,7 @@ class MatchServer:
         self.pool = pool
         self.submit_timeout = submit_timeout_ms / 1e3
         self.device = ts.device
-        self._cuda = self.device.type == "cuda"
-        self._stream = None
-        if self._cuda:
-            self._stream = torch.cuda.Stream(self.device)
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._stream = _new_stream(self.device)
         self._q: queue.Queue = queue.Queue(maxsize=int(max_queue))
         self._stop = threading.Event()
         self._device_slots = threading.Semaphore(self.depth)
@@ -107,10 +181,7 @@ class MatchServer:
         return self.submit(query_prints, timeout_ms=None).result()
 
     def _bucket(self, n: int) -> int:
-        b = 1
-        while b < n:
-            b *= 4
-        return min(b, self.max_batch)
+        return _bucket(n, self.max_batch)
 
     def warmup(self, example_query: np.ndarray) -> None:
         """Run every batch bucket once, so that no first-use cost (the kernel
@@ -119,9 +190,9 @@ class MatchServer:
         b = 1
         while True:
             rows = [q] * min(b, self.max_batch)
-            with self._on_stream():
+            with _on(self._stream):
                 out, ready = self._dispatch(rows)
-            self._wait(ready)
+            api._wait(ready)
             if b >= self.max_batch:
                 break
             b *= 4
@@ -142,95 +213,43 @@ class MatchServer:
         self.close()
 
     # ---- device side ----------------------------------------------------
-    def _on_stream(self):
-        return torch.cuda.stream(self._stream) if self._cuda else contextlib.nullcontext()
-
     def _dispatch(self, rows):
         """Upload one padded batch, queue its match, and start the copy back:
         ((B, 3, K) int32 host tensor, event to wait on or None). No sync."""
         host = torch.from_numpy(np.stack(rows).view(np.int32))
-        if not self._cuda:
-            return self.ts.dispatch_batch(host.to(self.device), pool=self.pool), None
-        q = host.pin_memory().to(self.device, non_blocking=True)
-        out_dev = self.ts.dispatch_batch(q, pool=self.pool)
-        out = torch.empty(out_dev.shape, dtype=out_dev.dtype, pin_memory=True)
-        out.copy_(out_dev, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(self._stream)
-        return out, ready
-
-    @staticmethod
-    def _wait(ready) -> None:
-        if ready is not None:
-            ready.synchronize()
-
-    # ---- dispatcher -----------------------------------------------------
-    def _collect(self):
-        """Block for one query, then soak up to max_batch within max_wait."""
-        item = self._q.get()
-        if item is None:
-            return []
-        batch = [item]
-        deadline = time.monotonic() + self.max_wait
-        while len(batch) < self.max_batch:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                break
-            try:
-                nxt = self._q.get(timeout=left)
-            except queue.Empty:
-                break
-            if nxt is None:
-                break
-            batch.append(nxt)
-        return batch
+        out_dev = self.ts.dispatch_batch(api._upload(host, self.device), pool=self.pool)
+        return api._to_host(out_dev, self._stream)
 
     def _run(self):
-        with self._on_stream():
+        with _on(self._stream):
             while not self._stop.is_set():
-                batch = self._collect()
+                batch = _collect(self._q, self.max_batch, self.max_wait)
                 if not batch:
                     break
                 rows = [q for q, _ in batch]
                 rows += [rows[-1]] * (self._bucket(len(rows)) - len(rows))
-                # Bound the device queue: a slot frees when a result lands.
-                acquired = False
-                while not acquired and not self._stop.is_set():
-                    acquired = self._device_slots.acquire(timeout=0.1)
                 futs = [f for _, f in batch]
-                if not acquired:
-                    self._fail(futs, RuntimeError("server closed"))
+                # Bound the device queue: a slot frees when a result lands.
+                if not _acquire(self._device_slots, self._stop):
+                    _fail(futs, RuntimeError("server closed"))
                     break
                 try:
                     out, ready = self._dispatch(rows)
                 except Exception as e:             # a failed launch fails its batch
                     self._device_slots.release()
-                    self._fail(futs, e)
+                    _fail(futs, e)
                     continue
                 self._rank_pool.submit(self._finish, out, ready, futs)
-        # Fail anything still queued after close().
-        while True:
-            try:
-                item = self._q.get_nowait()
-            except queue.Empty:
-                break
-            if item is not None:
-                item[1].set_exception(RuntimeError("server closed"))
-
-    @staticmethod
-    def _fail(futs, exc) -> None:
-        for fut in futs:
-            if fut.set_running_or_notify_cancel():
-                fut.set_exception(exc)
+        _drain(self._q)
 
     def _finish(self, out, ready, futs):
         """Rank-worker side: wait for the batch's result, then rank each query."""
         try:
-            self._wait(ready)
+            api._wait(ready)
             host = out.numpy()
         except Exception as e:                     # device failure: fail futures
             self._device_slots.release()
-            self._fail(futs, e)
+            _fail(futs, e)
             return
         self._device_slots.release()
         for b, fut in enumerate(futs):
@@ -246,3 +265,339 @@ class MatchServer:
         real = idx < self.ts.n_real
         return _rank_dedup(scores[real], idx[real], offs[real], self.ts.db.track_ids,
                            self.top_k if self.top_k else cfg.top_k)
+
+
+class EscalatingMatchServer:
+    """PCM-in serving loop with identity-first rendition-scan escalation:
+    api.match_scan_escalating as a service.
+
+    Callers submit raw PCM windows of `query_samples` samples. The rigid
+    dispatcher extracts each batch (K1, then K2 a row, keeping the (B, F,
+    n_bins) spectra on the device) and makes one rigid dispatch_batch. A
+    rank worker resolves the confident answers (api.rigid_confident, ranked
+    one deeper than top_k), keeps the unconfident ones whose sub-window
+    offsets are collinear when `structure_gate` is set (api.rigid_structured,
+    over one copy of those rows' prints to the host), and queues the rest on
+    a second dispatch class: the scan dispatcher runs api.scan_from_spec on
+    the saved spectra (V K2 launches a query, no new K1), makes one
+    dispatch_batch of the (B * V, n, 2) stack, ranks each query's V rows
+    together, and overrides the rigid answer only under api.scan_overrides.
+    Clean traffic never queues behind scans on the host.
+
+    The two dispatchers own one CUDA stream each. A spectrum made on the
+    rigid stream is read on the scan stream after that stream waits for the
+    rigid batch's event, and is recorded on the scan stream so that its
+    memory outlives the scan's kernels.
+
+    Futures resolve to (ids, scores, offsets, escalated: bool); `stats`
+    counts submitted, confident, structure_kept, escalated, overridden and
+    shed queries. Batches pad to powers of 4 (max_batch for the rigid class,
+    scan_batch, default max(1, 70 // V), for the scan class).
+    """
+
+    def __init__(self, ts, filters, query_samples: int, *,
+                 max_batch: int = 16, max_wait_ms: float = 5.0,
+                 scan_batch: int | None = None,
+                 scan_wait_ms: float | None = None,
+                 depth: int = 2, top_k: int | None = None,
+                 pool: int | None = None, max_queue: int = 256,
+                 submit_timeout_ms: float = 0.0, rank_workers: int = 4,
+                 threshold: float = 0.62, margin: float = 0.04,
+                 hi_sim: float = 0.78, override: float = 0.02,
+                 span: float | None = None, step: float | None = None,
+                 pitch_span_bins: int | None = None,
+                 structure_gate: float | None = None,
+                 structure_slope_tol: float = 0.005,
+                 override_unstructured: float | None = None,
+                 interp: str = "linear"):
+        self.ts = ts
+        cfg = ts.db.cfg
+        self.cfg = cfg
+        self.n_samples = int(query_samples)
+        self.n_q = cfg.n_hashprints(self.n_samples)
+        if self.n_q <= 0:
+            raise ValueError(f"query window of {query_samples} samples "
+                             "yields no hashprints")
+        if interp not in ("linear", "nearest"):
+            raise ValueError(f"unknown interp {interp!r}")
+        self.max_batch = int(max_batch)
+        self.max_wait = max_wait_ms / 1e3
+        self.top_k = top_k
+        self.pool = pool
+        self.gate = dict(threshold=threshold, margin=margin, hi_sim=hi_sim)
+        self.override = override
+        self.structure_gate = structure_gate
+        self.structure_slope_tol = structure_slope_tol
+        # The override bar of scans whose rigid answer failed the structure
+        # gate: with the gate set, every query in the scan queue did.
+        self.override_unstructured = (
+            override_unstructured if structure_gate is not None else None)
+        if structure_gate is not None and ts.db.prints is None:
+            raise ValueError("structure_gate needs host print rows on ts.db.prints")
+        self.hyps = api.scan_hypotheses(cfg, span, step, pitch_span_bins)
+        self.interp = interp
+        # About 70 variant rows a scan dispatch, as the reference sizes them.
+        self.scan_batch = int(scan_batch) if scan_batch else max(1, 70 // len(self.hyps))
+        self.scan_wait = (scan_wait_ms / 1e3 if scan_wait_ms is not None
+                          else 2 * self.max_wait)
+        self.submit_timeout = submit_timeout_ms / 1e3
+        self.device = ts.device
+        self._filters = api._filters_on(filters, cfg, self.device)
+        self._rigid_stream = _new_stream(self.device)
+        self._scan_stream = _new_stream(self.device)
+        self._q: queue.Queue = queue.Queue(maxsize=int(max_queue))
+        self._scan_q: queue.Queue = queue.Queue()
+        self._stop = threading.Event()
+        self._device_slots = threading.Semaphore(int(depth))
+        self._rank_pool = ThreadPoolExecutor(
+            max_workers=int(rank_workers), thread_name_prefix="hpfw-esc")
+        self._lock = threading.Lock()
+        self.stats = {"submitted": 0, "confident": 0, "escalated": 0,
+                      "overridden": 0, "structure_kept": 0, "shed": 0}
+        self._rigid_thread = threading.Thread(target=self._run_rigid, daemon=True)
+        self._scan_thread = threading.Thread(target=self._run_scan, daemon=True)
+        self._rigid_thread.start()
+        self._scan_thread.start()
+
+    def _count(self, key: str) -> None:
+        with self._lock:
+            self.stats[key] += 1
+
+    # ---- client surface -------------------------------------------------
+    def submit(self, pcm: np.ndarray, timeout_ms: float | None = None) -> Future:
+        """Queue one PCM window; resolves to (ids, scores, offs, escalated)."""
+        p = np.asarray(pcm, dtype=np.float32)
+        fut: Future = Future()
+        if p.shape != (self.n_samples,):
+            fut.set_exception(ValueError(
+                f"server is pinned to {self.n_samples}-sample queries, got {p.shape}"))
+            return fut
+        if self._stop.is_set():
+            fut.set_exception(RuntimeError("server closed"))
+            return fut
+        wait = self.submit_timeout if timeout_ms is None else timeout_ms / 1e3
+        try:
+            if wait > 0:
+                self._q.put((p, fut), timeout=wait)
+            else:
+                self._q.put_nowait((p, fut))
+            self._count("submitted")
+        except queue.Full:
+            self._count("shed")
+            fut.set_exception(ServerSaturated(
+                f"submit queue full ({self._q.maxsize} pending)"))
+        return fut
+
+    def match(self, pcm: np.ndarray):
+        """Blocking convenience wrapper."""
+        return self.submit(pcm, timeout_ms=None).result()
+
+    def warmup(self, example_pcm: np.ndarray) -> None:
+        """Run every rigid and scan batch bucket once, so that no first-use
+        cost (the kernel build, the allocator's first blocks) falls inside a
+        request."""
+        p = np.asarray(example_pcm, dtype=np.float32)
+        spec1 = None
+        with _on(self._rigid_stream):
+            b = 1
+            while True:
+                specs, prints = self._extract([p] * min(b, self.max_batch))
+                spec1 = specs[0] if spec1 is None else spec1
+                self.ts.dispatch_batch(prints, pool=self.pool).cpu()   # waits
+                if b >= self.max_batch:
+                    break
+                b *= 4
+        with _on(self._scan_stream):
+            b = 1
+            while True:
+                bb = _bucket(b, self.scan_batch)
+                self._scan([spec1] * bb).cpu()
+                if bb >= self.scan_batch:
+                    break
+                b *= 4
+
+    def close(self) -> None:
+        self._stop.set()
+        for q in (self._q, self._scan_q):
+            try:
+                q.put_nowait(None)         # wake the dispatcher
+            except queue.Full:
+                pass                       # dispatcher is draining; stop flag set
+        self._rigid_thread.join()
+        self._scan_thread.join()
+        self._rank_pool.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ---- device side ----------------------------------------------------
+    def _extract(self, rows):
+        """PCM rows -> ((B, F, n_bins) spectra, (B, n_q, 2) int32 prints) on
+        the device: K1, then K2 a row, on the current stream."""
+        pcms = api._upload(torch.from_numpy(np.stack(rows)), self.device)
+        specs = torch.stack([frontend.cqt(p, self.cfg) for p in pcms])
+        prints = torch.stack([fp_ops.fingerprint_from_spec(s, self._filters, self.cfg)
+                              for s in specs])
+        return specs, prints
+
+    def _scan(self, specs) -> torch.Tensor:
+        """Saved spectra -> (B * V, 3, K): their hypotheses' stack, matched.
+
+        The stack goes through dispatch_batch in pieces of whole queries
+        that fit K5's queries a launch (one piece at the default
+        scan_batch); the pool is never shrunk."""
+        stack = torch.cat([api.scan_from_spec(s, self._filters, self.cfg, self.hyps,
+                                              self.interp) for s in specs])
+        step = fine.MAX_QUERIES // len(self.hyps) * len(self.hyps)
+        return torch.cat([self.ts.dispatch_batch(stack[i:i + step], pool=self.pool)
+                          for i in range(0, stack.shape[0], step)])
+
+    # ---- the rigid class ------------------------------------------------
+    def _run_rigid(self):
+        with _on(self._rigid_stream):
+            while not self._stop.is_set():
+                batch = _collect(self._q, self.max_batch, self.max_wait)
+                if not batch:
+                    continue
+                rows = [p for p, _ in batch]
+                rows += [rows[-1]] * (_bucket(len(rows), self.max_batch) - len(rows))
+                futs = [f for _, f in batch]
+                if not _acquire(self._device_slots, self._stop):
+                    _fail(futs, RuntimeError("server closed"))
+                    break
+                try:
+                    specs, prints = self._extract(rows)
+                    out, ready = api._to_host(self.ts.dispatch_batch(prints, pool=self.pool),
+                                              self._rigid_stream)
+                except Exception as e:             # a failed launch fails its batch
+                    self._device_slots.release()
+                    _fail(futs, e)
+                    continue
+                self._rank_pool.submit(self._finish_rigid, out, ready, specs, prints, futs)
+        _drain(self._q)
+
+    def _finish_rigid(self, out, ready, specs, prints, futs):
+        """Rank-worker side of a rigid batch: resolve the confident answers
+        first, then the structure gate, then queue the rest for the scan."""
+        try:
+            api._wait(ready)
+            host = out.numpy()
+        except Exception as e:                     # device failure: fail futures
+            self._device_slots.release()
+            _fail(futs, e)
+            return
+        self._device_slots.release()
+        unconfident = []
+        for b, fut in enumerate(futs):
+            try:
+                ranked = self._rank(host[b])
+                if api.rigid_confident(ranked[1], self.n_q, **self.gate):
+                    self._count("confident")
+                    self._resolve(fut, ranked, False)
+                else:
+                    unconfident.append((b, ranked, fut))
+            except Exception as e:
+                _fail([fut], e)
+        if not unconfident:
+            return
+        qprints = None
+        if self.structure_gate is not None:
+            # The one copy of the batch's prints, for its unconfident rows.
+            qprints = api._to_numpy_prints(prints[[b for b, _, _ in unconfident]])
+        for j, (b, ranked, fut) in enumerate(unconfident):
+            try:
+                if qprints is not None and len(ranked[0]) and self._structured(qprints[j],
+                                                                               ranked):
+                    self._count("structure_kept")
+                    self._resolve(fut, ranked, False)
+                else:
+                    self._count("escalated")
+                    self._scan_q.put((specs[b], ready, ranked, fut))
+            except Exception as e:
+                _fail([fut], e)
+
+    def _structured(self, query_prints: np.ndarray, ranked) -> bool:
+        db = self.ts.db
+        row = db.index_of(ranked[0][0])
+        return api.rigid_structured(query_prints, db.prints[row], int(ranked[2][0]),
+                                    inlier=self.structure_gate,
+                                    slope_tol=self.structure_slope_tol,
+                                    length=int(db.lengths[row]))
+
+    # ---- the scan class -------------------------------------------------
+    def _run_scan(self):
+        with _on(self._scan_stream):
+            while not self._stop.is_set():
+                batch = _collect(self._scan_q, self.scan_batch, self.scan_wait,
+                                 first_wait=self.scan_wait)
+                if not batch:
+                    continue
+                specs = [s for s, _, _, _ in batch]
+                specs += [specs[-1]] * (_bucket(len(specs), self.scan_batch) - len(specs))
+                futs = [f for _, _, _, f in batch]
+                if not _acquire(self._device_slots, self._stop):
+                    _fail(futs, RuntimeError("server closed"))
+                    break
+                try:
+                    if self._scan_stream is not None:
+                        # The spectra come from the rigid stream: wait for
+                        # their batch's event, and keep their memory until
+                        # the scan stream's work on them has run.
+                        for ev in {id(r): r for _, r, _, _ in batch}.values():
+                            self._scan_stream.wait_event(ev)
+                        for s in specs:
+                            s.record_stream(self._scan_stream)
+                    out, ready = api._to_host(self._scan(specs), self._scan_stream)
+                except Exception as e:             # a failed launch fails its batch
+                    self._device_slots.release()
+                    _fail(futs, e)
+                    continue
+                self._rank_pool.submit(self._finish_scan, out, ready,
+                                       [(r, f) for _, _, r, f in batch])
+        _drain(self._scan_q)
+
+    def _finish_scan(self, out, ready, items):
+        try:
+            api._wait(ready)
+            host = out.numpy()
+        except Exception as e:
+            self._device_slots.release()
+            _fail([f for _, f in items], e)
+            return
+        self._device_slots.release()
+        v = len(self.hyps)
+        # (B * V, 3, K) -> (B, 3, V * K): a query's hypothesis rows rank together.
+        host = np.moveaxis(host.reshape(-1, v, 3, host.shape[-1]), 1, 2)
+        host = host.reshape(host.shape[0], 3, -1)
+        ov = (self.override_unstructured
+              if self.override_unstructured is not None else self.override)
+        for b, (rigid, fut) in enumerate(items):
+            try:
+                ranked = self._rank(host[b])
+                if api.scan_overrides(ranked[1], rigid[1], override=ov):
+                    self._count("overridden")
+                    result = ranked
+                else:
+                    result = rigid
+                self._resolve(fut, result, True)
+            except Exception as e:
+                _fail([fut], e)
+
+    # ---- ranking --------------------------------------------------------
+    def _k(self) -> int:
+        return self.top_k if self.top_k else self.cfg.top_k
+
+    def _rank(self, out_b: np.ndarray):
+        """One query's (3, K) rows ranked one deeper than top_k: the margin
+        gate reads the runner-up."""
+        scores, idx, offs = out_b
+        real = idx < self.ts.n_real
+        return _rank_dedup(scores[real], idx[real], offs[real], self.ts.db.track_ids,
+                           max(2, self._k()))
+
+    def _resolve(self, fut: Future, ranked, escalated: bool) -> None:
+        if fut.set_running_or_notify_cancel():
+            fut.set_result(tuple(x[:self._k()] for x in ranked) + (escalated,))

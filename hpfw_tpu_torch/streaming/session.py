@@ -9,13 +9,10 @@ Counterpart of hpfw_tpu/streaming/session.py:
 - StreamingSession keeps a ring of recent prints as the sliding query,
   matches it against a FingerprintDB (dense) or a TwoStageDB (catalog
   scale) after every print chunk, integrates each window's top hit into a
-  decayed vote tally, and records per-step latencies for p50/p99.
-
-The spec-level tempo and pitch scan (spec_scan, on by default when the
-config sets stretch_span > 0 or pitch_span_bins > 0) needs api.scan_from_spec
-and scan_hypotheses, which are not ported yet (ROADMAP A3), and raises. With
-spec_scan=False the session matches the plain ring, as the reference does:
-a TwoStageDB then runs its print-level tempo scan (stretch_span).
+  decayed vote tally, and records per-step latencies for p50/p99. With a
+  tempo or pitch span in the config it runs the spec-level rendition scan
+  (api.scan_from_spec over the extractor's frame ring) as an ACQUIRE/TRACK
+  state machine.
 """
 
 from __future__ import annotations
@@ -52,7 +49,7 @@ class ChunkedExtractor:
     covering CQT frames [t, t + chunk_prints + halo) where halo = context_w +
     delta_lag - 1; consecutive windows overlap by halo frames worth of
     samples plus (frame_len - hop). Work runs on `device`, else the filters
-    tensor's device, else the card when torch sees one.
+    tensor's device, else the card.
     """
 
     def __init__(self, filters, cfg: HpfwConfig, chunk_prints: int = 32, *,
@@ -138,7 +135,7 @@ def latency_percentiles(**series) -> dict:
 
 
 class StreamingSession:
-    """Continuous live-song ID over an audio stream, without the spec scan.
+    """Continuous live-song ID over an audio stream.
 
     feed() audio in arbitrary-size chunks; after each print-chunk boundary
     the sliding query is matched against the database and the running best
@@ -148,28 +145,44 @@ class StreamingSession:
     with the largest filled bucket as the query. Match latency and
     end-to-end step latency are recorded for p50/p99 reporting. Extraction
     runs on the database's device.
+
+    Live renditions (cfg.stretch_span > 0 or cfg.pitch_span_bins > 0): by
+    default the session runs the spec-level scan. The extractor keeps a ring
+    of log-mag CQT frames beside the prints; a full-ring match re-times and
+    re-keys the newest n + halo frames once a (tempo, pitch) hypothesis
+    (api.scan_from_spec: one K2 launch a hypothesis on the card) and the
+    (V, n, 2) stack is matched with every hypothesis ranking together. The
+    scan runs as ACQUIRE/TRACK: the full hypothesis grid until a window is
+    confident (above the vote floor and lock_margin clear of its runner-up),
+    then a 3-point tempo neighbourhood at the locked pitch (nothing extra
+    when locked at (1.0, 0)); three unconfident windows in a row re-enter
+    acquisition. spec_scan=False matches the plain ring instead (a
+    TwoStageDB then runs its print-level tempo scan).
     """
 
     def __init__(self, db, filters, cfg: HpfwConfig | None = None, *,
                  query_prints: int = 128, chunk_prints: int = 32,
                  match_every: int = 1, vote_decay: float = 0.8,
                  query_buckets: tuple | None = None, vote_floor: float = 0.55,
-                 spec_scan: bool | None = None):
+                 spec_scan: bool | None = None, lock_margin: float = 0.05):
         self.db = db                      # FingerprintDB or TwoStageDB
         self.cfg = cfg if cfg is not None else getattr(db, "cfg", None) or db.db.cfg
-        # As the reference: the spec-level scan is on by default when the
-        # config asks for a tempo or pitch scan.
         scan_axes = self.cfg.stretch_span > 0.0 or self.cfg.pitch_span_bins > 0
         if spec_scan is None:
             spec_scan = scan_axes
         if spec_scan and not scan_axes:
             raise ValueError("spec_scan=True needs cfg.stretch_span > 0 "
                              "and/or cfg.pitch_span_bins > 0")
-        if spec_scan:
-            raise NotImplementedError(
-                "the streaming spec-level tempo/pitch scan needs api.scan_from_spec, "
-                "not ported yet (ROADMAP A3); spec_scan=False matches the plain ring")
-        self.extractor = ChunkedExtractor(filters, self.cfg, chunk_prints, device=db.device)
+        self._spec_scan = bool(spec_scan)
+        halo = self.cfg.context_w + self.cfg.delta_lag - 1
+        self.extractor = ChunkedExtractor(
+            filters, self.cfg, chunk_prints, device=db.device,
+            frame_ring=(query_prints + halo) if self._spec_scan else 0)
+        self._scan_state = "acquire"   # full grid until a lock, then track
+        self.tempo = 1.0               # locked tempo factor
+        self.pitch = 0                 # locked pitch roll (CQT bins)
+        self._subfloor = 0             # consecutive unconfident full windows
+        self.lock_margin = lock_margin  # top1 -> top2 gap that locks
         self.query_prints = query_prints
         self.match_every = match_every
         self.vote_decay = vote_decay
@@ -188,20 +201,89 @@ class StreamingSession:
         self.last_match: tuple[str, int, int] | None = None  # instantaneous
         self.current_best: StreamHypothesis | None = None   # integrated
 
+    def _scan_factors(self) -> tuple:
+        """The (tempo, pitch roll) hypotheses of the next full window: the
+        whole grid while acquiring; while tracking, the locked tempo and its
+        grid neighbours at the locked pitch, ((1.0, pitch),) for a pitch-only
+        lock, and () (rigid only) when locked at (1.0, 0)."""
+        if self._scan_state == "acquire":
+            return api.scan_hypotheses(self.cfg)
+        if self.tempo == 1.0 and self.pitch == 0:
+            return ()
+        if self.cfg.stretch_span <= 0.0:
+            return ((1.0, self.pitch),)
+        step = self.cfg.stretch_step
+        lo, hi = 1.0 - self.cfg.stretch_span, 1.0 + self.cfg.stretch_span
+        return tuple((s, self.pitch) for s in
+                     sorted({max(lo, round(self.tempo - step, 6)),
+                             round(self.tempo, 6),
+                             min(hi, round(self.tempo + step, 6))}))
+
+    def _scan_stack(self, n: int, factors: tuple) -> np.ndarray:
+        """(V, n, 2) uint32 hypothesis prints from the newest n + halo frames
+        of the frame ring, uploaded once; the identity hypothesis gives the
+        print ring's last n prints."""
+        halo = self.extractor.halo_frames
+        frames = np.asarray(self.extractor.frame_ring, dtype=np.float32)[-(n + halo):]
+        spec = torch.from_numpy(frames).to(self.extractor.device)
+        return api._to_numpy_prints(
+            api.scan_from_spec(spec, self.extractor._filters, self.cfg, factors))
+
     def _match_window(self):
         n = max(b for b in self.query_buckets if b <= len(self._ring))
         q = np.array(self._ring, dtype=np.uint32)[-n:]
+        # The scan and the lock state run on full-ring windows only: a short
+        # early bucket cannot resolve the tempo drift and would lock at 1.0.
+        full = n == self.query_prints
+        factors = (self._scan_factors() if self._spec_scan and full
+                   and len(self.extractor.frame_ring) >= n + self.extractor.halo_frames
+                   else ())
+        k = 2 if self._spec_scan else 1   # the runner-up feeds the lock margin
+        win_factor = (1.0, 0)
         t0 = time.perf_counter()
-        if hasattr(self.db, "match"):     # TwoStageDB
-            ids, scores, offs = self.db.match(q, top_k=1)
-        else:                             # dense FingerprintDB
-            ids, scores, offs = api.match(q, self.db, top_k=1)
+        if factors:
+            stack = self._scan_stack(n, factors)
+            if hasattr(self.db, "dispatch"):   # TwoStageDB: the rows rank together
+                ids, scores, offs, var = self.db.match(stack, top_k=k, return_variant=True)
+                if len(ids):
+                    win_factor = factors[int(var[0])]
+            else:                              # dense: a match a variant, first best wins
+                ids, scores, offs, best = [], [], [], None
+                for f, v in zip(factors, stack):
+                    r = api.match(v, self.db, top_k=k)
+                    if len(r[0]) and (best is None or r[1][0] > scores[0]):
+                        best, (ids, scores, offs) = f, r
+                if best is not None:
+                    win_factor = best
+        elif hasattr(self.db, "match"):        # TwoStageDB
+            ids, scores, offs = self.db.match(q, top_k=k)
+        else:                                  # dense FingerprintDB
+            ids, scores, offs = api.match(q, self.db, top_k=k)
         self.match_latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        if self._spec_scan and full and len(ids):
+            self._update_lock(scores, n, win_factor if factors else (1.0, 0))
         if len(ids):
             self.last_match = (ids[0], int(scores[0]), int(offs[0]))
             self.current_best = integrate_vote(
                 self._votes, self._last, ids, scores, offs, q.shape[0],
                 decay=self.vote_decay, floor=self.vote_floor)
+
+    def _update_lock(self, scores, n: int, factor) -> None:
+        """A confident window (above the vote floor and lock_margin clear of
+        its runner-up) locks or re-centres on its hypothesis; the third
+        unconfident window in a row re-enters acquisition."""
+        s1 = float(scores[0])
+        s2 = float(scores[1]) if len(scores) > 1 else 0.0
+        if (s1 > self.vote_floor * 64.0 * n
+                and (s1 - s2) / max(s1, 1e-9) >= self.lock_margin):
+            self._scan_state = "track"
+            self.tempo, self.pitch = float(factor[0]), int(factor[1])
+            self._subfloor = 0
+        else:
+            self._subfloor += 1
+            if self._subfloor >= 3:
+                self._scan_state = "acquire"
+                self._subfloor = 0
 
     def feed(self, pcm: np.ndarray):
         """Stream in audio; returns the current StreamHypothesis (track_id,

@@ -28,7 +28,7 @@ def catalog(cfg):
 def dbs(cfg, catalog):
     tracks, filters = catalog
     ids = {f"t{i}": t for i, t in enumerate(tracks)}
-    return (api.build_db(ids, filters, _port(cfg)),
+    return (api.build_db(ids, filters, _port(cfg), device="cpu"),
             jax_api.build_db(ids, filters, cfg))
 
 
@@ -52,7 +52,7 @@ def test_match_equals_jax(cfg, catalog, dbs, query):
         pcm = synth.make_query(tracks[4], 0.9, 2.0, cfg, noise_db=-15.0, seed=3)
     else:
         pcm = np.concatenate([tracks[2], tracks[5][: cfg.sample_rate]])
-    q = api.fingerprint(pcm, filters, _port(cfg))
+    q = api.fingerprint(pcm, filters, _port(cfg), device="cpu")
     assert q.dtype == np.uint32
     # Both matchers over the same prints, so the comparison is exact.
     jax_db = jax_api.FingerprintDB(cfg, filters, port_db.track_ids, port_db.prints,
@@ -77,8 +77,8 @@ def test_fingerprint_bucketing_exact(cfg, catalog):
     for extra in [0, 17, cfg.hop - 1, 3 * cfg.hop + 5]:
         pcm = synth.synth_track(40, 1.7, cfg)
         pcm = pcm[: len(pcm) - extra]
-        unbucketed = api.fingerprint(pcm, filters, port, bucket_s=0)
-        bucketed = api.fingerprint(pcm, filters, port, bucket_s=0.25)
+        unbucketed = api.fingerprint(pcm, filters, port, bucket_s=0, device="cpu")
+        bucketed = api.fingerprint(pcm, filters, port, bucket_s=0.25, device="cpu")
         assert bucketed.shape == unbucketed.shape == (cfg.n_hashprints(len(pcm)), 2)
         np.testing.assert_array_equal(bucketed, unbucketed)
 
@@ -88,22 +88,23 @@ def test_fingerprint_batch_equals_per_track(cfg, catalog):
     port = _port(cfg)
     n = min(len(t) for t in tracks[:3]) - 123
     batch = np.stack([t[:n] for t in tracks[:3]])
-    got = api.fingerprint_batch(batch, filters, port)
+    got = api.fingerprint_batch(batch, filters, port, device="cpu")
     assert got.shape == (3, cfg.n_hashprints(n), 2) and got.dtype == np.uint32
     for i in range(3):
         np.testing.assert_array_equal(got[i], api.fingerprint(batch[i], filters, port,
-                                                              bucket_s=0))
-    assert api.fingerprint_batch(batch[:, :100], filters, port).shape == (3, 0, 2)
+                                                              bucket_s=0, device="cpu"))
+    assert api.fingerprint_batch(batch[:, :100], filters, port,
+                                 device="cpu").shape == (3, 0, 2)
 
 
 def test_db_save_load_across_packages(tmp_path, cfg, dbs):
     port_db, jax_db = dbs
-    pairs = [(port_db, jax_api.FingerprintDB, "port.npz"),
-             (jax_db, api.FingerprintDB, "jax.npz")]
-    for src, loader, name in pairs:
+    pairs = [(port_db, jax_api.FingerprintDB, "port.npz", {}),
+             (jax_db, api.FingerprintDB, "jax.npz", {"device": "cpu"})]
+    for src, loader, name, kw in pairs:
         path = str(tmp_path / name)
         src.save(path)
-        back = loader.load(path)
+        back = loader.load(path, **kw)
         assert back.cfg.to_json() == src.cfg.to_json()
         assert back.track_ids == src.track_ids
         for field in ("prints", "lengths", "filters"):
@@ -115,14 +116,36 @@ def test_db_save_load_across_packages(tmp_path, cfg, dbs):
 def test_short_input_and_devices(cfg, catalog):
     _, filters = catalog
     port = _port(cfg)
-    out = api.fingerprint(np.zeros(10, np.float32), filters, port)
+    out = api.fingerprint(np.zeros(10, np.float32), filters, port, device="cpu")
     assert out.shape == (0, 2) and out.dtype == np.uint32
     pcm = synth.synth_track(12, 1.0, cfg)
     from_tensor = api.fingerprint(pcm, torch.from_numpy(filters), port)
     np.testing.assert_array_equal(from_tensor, api.fingerprint(pcm, filters, port,
                                                                device="cpu"))
     with pytest.raises(ValueError):
-        api.fingerprint(pcm, filters[:-1], port)
+        api.fingerprint(pcm, filters[:-1], port, device="cpu")
     with pytest.raises(ValueError):
         api.FingerprintDB(port, filters, ["a"], np.zeros((1, 4, 2), np.uint32),
-                          np.array([5], np.int32))
+                          np.array([5], np.int32), device="cpu")
+
+
+@pytest.mark.parametrize("n_batches", [1, 2, 5])
+def test_fingerprint_stream_equals_batches(cfg, catalog, n_batches):
+    """Each yielded batch equals fingerprint_batch of that batch bit for bit,
+    in order, and hpfw_tpu's fingerprint_stream up to the margin audit."""
+    tracks, filters = catalog
+    port = _port(cfg)
+    n = 2 * cfg.sample_rate
+    batches = [np.stack([tracks[(i + j) % len(tracks)][i * 512:i * 512 + n]
+                         for j in range(2)]) for i in range(n_batches)]
+    got = list(api.fingerprint_stream(iter(batches), filters, port, device="cpu"))
+    want = list(jax_api.fingerprint_stream(iter(batches), filters, cfg))
+    assert len(got) == len(want) == n_batches
+    for b, g, w in zip(batches, got, want):
+        assert g.shape == w.shape == (2, cfg.n_hashprints(n), 2) and g.dtype == np.uint32
+        np.testing.assert_array_equal(g, api.fingerprint_batch(b, filters, port, device="cpu"))
+        for pcm, gi, wi in zip(b, g, w):
+            assert_bits_match_with_margin_audit(
+                gi, wi, oracle.delta_margins(pcm, filters, cfg)[:gi.shape[0]])
+    with pytest.raises(ValueError, match="PCM batches"):
+        next(api.fingerprint_stream([np.zeros(n, np.float32)], filters, port, device="cpu"))

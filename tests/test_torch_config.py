@@ -3,11 +3,13 @@
 hpfw_tpu_torch cannot import hpfw_tpu (whose package import pulls in jax),
 so it carries copies of the config, the synthetic-audio generators (tracks,
 artist tracks, queries, pitch shift), the eigenvector sign convention, the
-CQT kernel matrix and match/align.py. These tests hold each copy
+CQT kernel matrix, match/align.py, and the audio I/O of io/wav.py with the
+MPEG and ADTS frame headers its sniffers read. These tests hold each copy
 bit-identical to the original, prove the port imports no jax, and check
 that the kernel build fails loudly without a CUDA toolkit.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -18,12 +20,19 @@ import torch
 
 from hpfw_tpu import oracle
 from hpfw_tpu.config import HpfwConfig as JaxConfig
+from hpfw_tpu.io import aac as jax_aac
+from hpfw_tpu.io import mp3 as jax_mp3
+from hpfw_tpu.io import native as jax_native
 from hpfw_tpu.io import synth as jax_synth
+from hpfw_tpu.io import wav as jax_wav
 from hpfw_tpu.match import align as jax_align
 from hpfw_tpu.ops import frontend as jax_frontend
 from hpfw_tpu_torch import filters as port_filters
 from hpfw_tpu_torch.config import HpfwConfig as PortConfig
+from hpfw_tpu_torch.io import _sniff as port_sniff
+from hpfw_tpu_torch.io import native as port_native
 from hpfw_tpu_torch.io import synth as port_synth
+from hpfw_tpu_torch.io import wav as port_wav
 from hpfw_tpu_torch.match import align as port_align
 from hpfw_tpu_torch.ops import _build
 from hpfw_tpu_torch.ops import frontend as port_frontend
@@ -111,6 +120,41 @@ def test_align_copy_identical(case):
         port_align.subwindow_offsets(q[:3], track, o)
 
 
+# The audio I/O copied unchanged from hpfw_tpu/io: (port module, original
+# module, names). The sniffers also keep their bodies, less the imports that
+# the port makes once at the top of io/wav.py.
+IO_COPIES = [
+    (port_wav, jax_wav, ["_mulaw_table", "_alaw_table", "_decode_f80", "_decode_aiff_bytes",
+                         "_decode_au_bytes", "resample_linear", "_design_kaiser_sinc",
+                         "resample_sinc", "_KAISER_BETA", "_HALF_LEN_FACTOR"]),
+    (port_sniff, jax_mp3, ["BITRATES", "BITRATES_LSF", "SAMPLE_RATES", "SAMPLE_RATES_V2",
+                           "SAMPLE_RATES_V25", "FrameHeader", "_find_sync",
+                           "_free_format_size", "_skip_id3"]),
+    (port_sniff, jax_aac, ["ADTS_RATES", "_AdtsHeader", "_find_adts"]),
+    (port_native, jax_native, ["_fptr"]),
+]
+
+
+@pytest.mark.parametrize("port_mod,jax_mod,names", IO_COPIES,
+                         ids=["wav", "mp3_headers", "adts_headers", "native"])
+def test_io_copies_identical(port_mod, jax_mod, names):
+    for name in names:
+        ours, theirs = getattr(port_mod, name), getattr(jax_mod, name)
+        if callable(ours):
+            assert inspect.getsource(ours) == inspect.getsource(theirs), name
+        else:
+            assert ours == theirs, name
+
+
+def test_sniffers_identical_but_imports():
+    def body(fn):
+        return [ln for ln in inspect.getsource(fn).splitlines()
+                if ln.strip() and not ln.strip().startswith("from .")]
+
+    for name in ("_looks_like_mpeg", "_looks_like_adts"):
+        assert body(getattr(port_wav, name)) == body(getattr(jax_wav, name)), name
+
+
 def test_fix_eigenvector_signs_identical():
     rng = np.random.default_rng(0)
     f = rng.standard_normal((40, 64))
@@ -148,7 +192,8 @@ def test_port_imports_no_jax():
             "hpfw_tpu_torch.match.stretch, hpfw_tpu_torch.ops.probe, "
             "hpfw_tpu_torch.serve, hpfw_tpu_torch.streaming.session, "
             "hpfw_tpu_torch.streaming.pool, hpfw_tpu_torch.learn.pca, "
-            "hpfw_tpu_torch.match.align, hpfw_tpu_torch.artist; "
+            "hpfw_tpu_torch.match.align, hpfw_tpu_torch.artist, hpfw_tpu_torch.io.wav, "
+            "hpfw_tpu_torch.io.ingest, hpfw_tpu_torch.io.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hpfw_tpu')]; "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

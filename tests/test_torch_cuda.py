@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from hpfw_tpu_torch import ChunkedExtractor, MatchServer, api
+from hpfw_tpu_torch import ChunkedExtractor, MatchServer, StreamingSession, api
 from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.filters import filters_from_jax, fix_eigenvector_signs
 from hpfw_tpu_torch.io import synth
@@ -663,3 +663,155 @@ def test_fingerprint_multi_on_card_equals_per_bank(dev):
         assert _bits(torch.from_numpy(multi[a].view(np.int32)),
                      torch.from_numpy(plain[a].view(np.int32))) <= max(2, multi[a].size
                                                                        * 32 // 10000)
+
+
+def _rendition(pcm, start_s, seconds, cfg, seed):
+    """A noisy excerpt played 2.9% fast and +0.5 semitone (one CQT bin)."""
+    clip = synth.make_query(pcm, start_s, 1.05 * seconds, cfg, noise_db=-20.0, seed=seed)
+    return synth.pitch_shift(clip, 0.5, cfg)[:int(seconds * cfg.sample_rate)]
+
+
+def _plain_matcher_on_card(monkeypatch):
+    """Route the two-stage matcher's K4 and K5 calls through their plain
+    versions (on the card too)."""
+    from hpfw_tpu_torch.match import scaled
+    for name, ref in (("coarse_scan", coarse_scan.coarse_scan_ref),
+                      ("coarse_scan_batch", coarse_scan.coarse_scan_batch_ref),
+                      ("coarse_scan_batch_packed", coarse_scan.coarse_scan_batch_packed_ref),
+                      ("coarse_rescan", coarse_scan.coarse_rescan_ref),
+                      ("fine_rescan_batch", fine.fine_rescan_ref)):
+        monkeypatch.setattr(scaled, name, ref)
+
+
+def _drive(sess, live, step):
+    """Per feed: the lock state, the top track, and for a matching feed the
+    query window, the scan stack and the window's top hit."""
+    stacks = []
+    real = sess._scan_stack
+
+    def recorded(n, factors):
+        stacks.append(real(n, factors))
+        return stacks[-1]
+
+    sess._scan_stack = recorded
+    out = []
+    for p in range(0, len(live), step):
+        n_match, n_stacks = len(sess.match_latencies_ms), len(stacks)
+        best = sess.feed(live[p:p + step])
+        rec = [(sess._scan_state, sess.tempo, sess.pitch), best and best.track_id]
+        if len(sess.match_latencies_ms) > n_match:
+            rec += [np.array(sess._ring, np.uint32)[-max(b for b in sess.query_buckets
+                                                         if b <= len(sess._ring)):],
+                    stacks[-1] if len(stacks) > n_stacks else None, sess.last_match]
+        out.append(rec)
+    return out
+
+
+def test_spec_scan_session_on_card_equals_plain(dev, monkeypatch):
+    """A tempo x pitch spec-scan session over a TwoStageDB on the card
+    (K1, K2, K4, K5) against the same session through the plain versions on
+    the card: the same lock states and top tracks every feed, and the same
+    window top hit wherever the window's and the scan's prints are equal."""
+    cfg = HpfwConfig(stretch_span=0.03, pitch_span_bins=1)
+    filters = _filters(cfg)
+    tracks = synth.synth_catalog(12, 20.0, cfg)
+    db = api.build_db(tracks, filters, cfg, device=dev)
+    ts = TwoStageDB(db, stride=4)
+    live = _rendition(tracks[5], 2.0, 12.0, cfg, seed=1)
+    step = cfg.sample_rate // 4
+    _build.reset_launch_counts()
+    card = _drive(StreamingSession(ts, filters, cfg, query_prints=128, chunk_prints=32),
+                  live, step)
+    assert all(_build.LAUNCHES[k] for k in ("cqt", "fingerprint", "coarse_scan", "fine_rescan"))
+    _plain_on_card(monkeypatch)
+    _plain_matcher_on_card(monkeypatch)
+    _build.reset_launch_counts()
+    plain = _drive(StreamingSession(ts, filters, cfg, query_prints=128, chunk_prints=32),
+                   live, step)
+    assert not any(_build.LAUNCHES.values())
+    equal = 0
+    for a, b in zip(card, plain):
+        assert a[:2] == b[:2] and len(a) == len(b)
+        if len(a) > 2 and np.array_equal(a[2], b[2]) and (
+                (a[3] is None and b[3] is None)
+                or (a[3] is not None and b[3] is not None and np.array_equal(a[3], b[3]))):
+            assert a[4] == b[4]
+            equal += 1
+    assert equal > 0
+    assert card[-1][:2] == [("track", card[-1][0][1], 1), "5"]
+    assert abs(card[-1][0][1] - 1.03) <= 0.01 + 1e-9
+
+
+def test_escalating_server_on_card_equals_api(dev):
+    """EscalatingMatchServer on the card (two streams, the spectra handed
+    from the rigid to the scan stream) gives match_scan_escalating's answers
+    and flags, alone and in batches, with and without the structure gate."""
+    from hpfw_tpu_torch import EscalatingMatchServer
+    cfg = HpfwConfig()
+    filters = _filters(cfg)
+    tracks = synth.synth_catalog(12, 20.0, cfg)
+    ts = TwoStageDB(api.build_db(tracks, filters, cfg, device=dev), stride=4)
+    pcms = np.stack([synth.make_query(tracks[i], 2.0, 8.0, cfg, noise_db=-20.0, seed=i)
+                     for i in range(3)] + [_rendition(tracks[i], 2.0, 8.0, cfg, seed=i)
+                                           for i in range(3, 6)])
+    kw = dict(span=0.03, pitch_span_bins=1)
+    for gate in (None, 0.75):
+        st: dict = {}
+        want = api.match_scan_escalating(pcms, filters, ts, cfg, structure_gate=gate,
+                                         stats=st, **kw)
+        with EscalatingMatchServer(ts, filters, pcms.shape[1], max_batch=4,
+                                   max_wait_ms=20.0, structure_gate=gate, **kw) as srv:
+            srv.warmup(pcms[0])
+            for got in ([srv.match(p) for p in pcms],
+                        [f.result(timeout=120)
+                         for f in [srv.submit(p) for p in list(pcms) * 3]]):
+                for k, (ids, sc, off, esc) in enumerate(got):
+                    w = want[k % len(pcms)]
+                    assert list(ids) == list(w[0]) and esc == (k % len(pcms) in st["escalated"])
+                    np.testing.assert_array_equal(sc, w[1])
+                    np.testing.assert_array_equal(off, w[2])
+            stats = dict(srv.stats)
+        assert stats["escalated"] == 4 * len(st["escalated"]) > 0
+        assert stats["confident"] + stats["structure_kept"] + stats["escalated"] == 4 * len(pcms)
+        assert [w[0][0] for w in want] == [str(i) for i in range(6)]
+
+
+def test_fingerprint_stream_on_card_equals_batch(dev):
+    """Copy-stream uploads, events and pinned copies: every yielded batch
+    equals fingerprint_batch bit for bit, in order, batch sizes 1-4."""
+    cfg = HpfwConfig()
+    filters = _filters(cfg)
+    base = synth.synth_track(80, 30.0, cfg)
+    batches = [np.stack([np.roll(base, 1000 * (7 * i + j)) for j in range(1 + i % 4)])
+               for i in range(6)]
+    _build.reset_launch_counts()
+    got = list(api.fingerprint_stream(iter(batches), filters, cfg, device=dev))
+    assert _build.LAUNCHES["cqt"] == _build.LAUNCHES["fingerprint"] == sum(map(len, batches))
+    assert len(got) == len(batches)
+    for g, b in zip(got, batches):
+        np.testing.assert_array_equal(g, api.fingerprint_batch(b, filters, cfg, device=dev))
+
+
+def test_build_db_from_files_on_card_equals_build_db(dev, tmp_path):
+    """Files through native decode and bucket-padded batches on the card:
+    the ids and lengths of build_db over the decoded PCM, and each track's
+    prints within K2's bar of them."""
+    from hpfw_tpu_torch.io import ingest, wav
+    cfg = HpfwConfig()
+    filters = _filters(cfg)
+    paths = []
+    for k in range(7):
+        pcm = synth.synth_track(90 + k, 6.0 + 3.0 * k, cfg)
+        paths.append(str(tmp_path / f"t{k}.wav"))
+        wav.save_wav(paths[-1], np.stack([pcm, pcm[::-1]], axis=1), cfg.sample_rate)
+    got = api.build_db_from_files(paths, filters, cfg, batch=3, bucket_seconds=10.0,
+                                  device=dev)
+    pcms = ingest.load_files(paths, cfg)
+    want = api.build_db(dict(zip(paths, pcms)), filters, cfg, device=dev)
+    assert got.track_ids == want.track_ids and got.device == want.device
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    for t in range(len(paths)):
+        n = int(got.lengths[t])
+        a = torch.from_numpy(got.prints[t, :n].view(np.int32))
+        b = torch.from_numpy(want.prints[t, :n].view(np.int32))
+        assert _bits(a, b) <= max(2, a.numel() * 32 // 10000), t

@@ -125,7 +125,8 @@ def data(cfg):
     ids = [str(i) for i in range(T)]
     lengths = np.full(T, L, np.int32)
     jdb = jax_api.FingerprintDB(cfg, filt, ids, prints, lengths)
-    pdb = api.FingerprintDB(HpfwConfig.from_json(cfg.to_json()), filt, ids, prints, lengths)
+    pdb = api.FingerprintDB(HpfwConfig.from_json(cfg.to_json()), filt, ids, prints, lengths,
+                            device="cpu")
     return jdb, pdb, np.stack(qs)
 
 

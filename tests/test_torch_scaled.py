@@ -84,7 +84,7 @@ def _pair(data, name):
         filt = np.zeros((jcfg.context_dim, 64), np.float32)
         ids = [str(i) for i in range(T)]
         jdb = jax_api.FingerprintDB(jcfg, filt, ids, prints, lengths)
-        pdb = api.FingerprintDB(pcfg, filt, ids, prints, lengths)
+        pdb = api.FingerprintDB(pcfg, filt, ids, prints, lengths, device="cpu")
         j = jax_scaled.TwoStageDB(jdb, stride=STRIDE, use_pallas_fine=True, coarse_tile=8,
                                   pallas_interpret=True, **kw)
         _BUILT[name] = (j, TwoStageDB(pdb, stride=STRIDE, **kw), match_kw)
@@ -200,13 +200,14 @@ def test_track_axis_padded_to_whole_tiles(tmp_path):
     ids = [f"t{i}" for i in range(13)]
     jcfg, pcfg = JaxConfig(**SMALL), PortConfig(**SMALL)
     filt = np.zeros((pcfg.context_dim, 64), np.float32)
-    ts = TwoStageDB(api.FingerprintDB(pcfg, filt, ids, prints, np.full(13, 120, np.int32)),
+    ts = TwoStageDB(api.FingerprintDB(pcfg, filt, ids, prints, np.full(13, 120, np.int32),
+                                      device="cpu"),
                     query_phases=2)
     ref = jax_scaled.TwoStageDB(
         jax_api.FingerprintDB(jcfg, filt, ids, prints, np.full(13, 120, np.int32)),
         query_phases=2, use_pallas_fine=True, coarse_tile=8, pallas_interpret=True)
     ts.save(str(tmp_path / "c"))
-    back = TwoStageDB.load(str(tmp_path / "c"))
+    back = TwoStageDB.load(str(tmp_path / "c"), device="cpu")
     other = jax_scaled.TwoStageDB.load(str(tmp_path / "c"), pallas_interpret=True)
     assert ts.db_c.shape[0] == back.db_c.shape[0] == 16 and back.n_real == 13
     for k, q in enumerate([prints[11, 21:21 + NQ], prints[4, 30:30 + NQ]]):
@@ -290,7 +291,7 @@ def test_errors(make, exc, match):
     cfg = PortConfig(**SMALL)
     db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32), ["a", "b"],
                            rng.integers(0, 2 ** 32, (2, 200, 2), dtype=np.uint32),
-                           np.full(2, 200, np.int32))
+                           np.full(2, 200, np.int32), device="cpu")
     with pytest.raises(exc, match=match):
         make(db)
 

@@ -1,8 +1,14 @@
-"""The port's MatchServer on the CPU over the port's TwoStageDB, its answers
-held against hpfw_tpu's TwoStageDB.match (Pallas path in interpret mode):
-the three cases of tests/test_serve.py, the batch buckets, warmup, and a
-concurrent-submit stress test."""
+"""The port's match servers on the CPU over the port's TwoStageDB.
 
+MatchServer's answers are held against hpfw_tpu's TwoStageDB.match (Pallas
+path in interpret mode): the three cases of tests/test_serve.py, the batch
+buckets, warmup, and a concurrent-submit stress test. EscalatingMatchServer
+is held against hpfw_tpu's EscalatingMatchServer on the same PCM (results,
+escalation flags, stats) and against the port's match_scan_escalating, with
+its buckets, refusals and load shedding."""
+
+import copy
+import dataclasses
 import sys
 import threading
 from types import SimpleNamespace
@@ -13,11 +19,17 @@ import pytest
 from hpfw_tpu import api as jax_api
 from hpfw_tpu import oracle
 from hpfw_tpu import serve as jax_serve
-from hpfw_tpu.io import synth
+from hpfw_tpu.io import synth, synth_jax
 from hpfw_tpu.match import scaled as jax_scaled
-from hpfw_tpu_torch import MatchServer, ServerSaturated, api
+from hpfw_tpu_torch import EscalatingMatchServer, MatchServer, ServerSaturated, api
 from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.match.scaled import TwoStageDB
+from hpfw_tpu_torch.ops import fine
+from tests.test_tpu_pipeline import assert_bits_match_with_margin_audit
+
+
+def _port(cfg):
+    return HpfwConfig.from_json(cfg.to_json())
 
 
 def _filters(cfg, seed=0):
@@ -36,7 +48,7 @@ def served(cfg):
     ref = jax_scaled.TwoStageDB(jdb, stride=4, use_pallas_fine=True, coarse_tile=8,
                                 pallas_interpret=True)
     pdb = api.FingerprintDB(HpfwConfig.from_json(cfg.to_json()), filters, jdb.track_ids,
-                            jdb.prints, jdb.lengths)
+                            jdb.prints, jdb.lengths, device="cpu")
     queries = [jax_api.fingerprint(synth.make_query(tracks[seed + 4], 0.5, 2.0, cfg,
                                                     noise_db=-15.0, seed=seed),
                                    filters, cfg) for seed in range(6)]
@@ -156,3 +168,198 @@ def test_concurrent_submitters_lose_no_future(served):
         else:
             assert isinstance(exc, ServerSaturated)
     assert served_n > 0
+
+
+# ---- EscalatingMatchServer against hpfw_tpu's, on the same PCM ----
+
+@pytest.fixture(scope="module")
+def escalating(cfg):
+    """tests/test_serve.py's escalation setup: 12 synth_jax tracks of 6 s in
+    one DB built by hpfw_tpu (stretch_span 0.03), both packages' TwoStageDBs
+    over its prints, and 4 s live queries: tracks 3 and 5 in tempo, track 9
+    3% fast. bits: the most bits by which the port's query prints (rigid or
+    a scan variant) differ from the reference's, each rigid print's bits
+    within the margin audit."""
+    cfg2 = dataclasses.replace(cfg, stretch_span=0.03, pitch_span_bins=0)
+    tracks = np.asarray(synth_jax.synth_batch(np.arange(12), 6.0, cfg2))
+    filters = _filters(cfg2)
+    jdb = jax_api.build_db(list(tracks), filters, cfg2)
+    ref = jax_scaled.TwoStageDB(jdb, stride=4, use_pallas_fine=True, coarse_tile=8,
+                                pallas_interpret=True)
+    pdb = api.FingerprintDB(_port(cfg2), filters, jdb.track_ids, jdb.prints, jdb.lengths,
+                            device="cpu")
+    pcms = np.stack([np.asarray(synth_jax.live_query_batch(
+        [t], [int(start * cfg2.sample_rate)], 6.0, 4.0, cfg2, stretch=s,
+        noise_db=-25.0))[0] for t, start, s in [(3, 0.5, 1.0), (9, 0.5, 1.03),
+                                                 (5, 0.8, 1.0)]])
+    ours = api.fingerprint_batch(pcms, filters, _port(cfg2), device="cpu")
+    theirs = jax_api.fingerprint_batch(pcms, filters, cfg2)
+    for pcm, g, w in zip(pcms, ours, theirs):
+        assert_bits_match_with_margin_audit(g, w, oracle.delta_margins(pcm, filters, cfg2)[
+            :g.shape[0]])
+    bits = max(_bits(ours, theirs), max(_bits(a, b) for a, b in zip(
+        api.fingerprint_scan_batch(pcms, filters, _port(cfg2), device="cpu"),
+        jax_api.fingerprint_scan_batch(pcms, filters, cfg2))))
+    return cfg2, filters, ref, TwoStageDB(pdb, stride=4), pcms, bits
+
+
+def _bits(a, b):
+    return int(np.bitwise_count(np.bitwise_xor(a, b)).sum())
+
+
+# Server kwargs of each case (tests/test_serve.py:255 and :357).
+ESCALATING_CASES = {
+    "defaults": dict(top_k=2),
+    "structure_gate": dict(top_k=1, threshold=1.01, hi_sim=1.01, structure_gate=0.75,
+                           override=10.0, override_unstructured=0.0),
+}
+
+
+def _serve(make, ts, filters, pcms, n_samples, kw):
+    with make(ts, filters, n_samples, max_batch=4, max_wait_ms=20.0, pool=16, **kw) as srv:
+        srv.warmup(pcms[0])
+        futs = [srv.submit(p) for p in pcms]
+        got = [f.result(timeout=600) for f in futs]
+        return got, dict(srv.stats)
+
+
+@pytest.mark.parametrize("case", list(ESCALATING_CASES))
+def test_escalating_server_equals_reference(escalating, case):
+    """Results, escalation flags and stats equal hpfw_tpu's server on the same
+    PCM (scores within the differing query bits, explained by the margin
+    audit), and equal the port's match_scan_escalating bit for bit."""
+    cfg2, filters, ref, ts, pcms, bits = escalating
+    kw = ESCALATING_CASES[case]
+    n_samples = pcms.shape[1]
+    got, stats = _serve(EscalatingMatchServer, ts, filters, pcms, n_samples, kw)
+    want, want_stats = _serve(jax_serve.EscalatingMatchServer, ref, filters, pcms,
+                              n_samples, kw)
+    assert stats == want_stats
+    assert stats["submitted"] == len(pcms)
+    assert stats["confident"] + stats["structure_kept"] + stats["escalated"] == len(pcms)
+    for (g_ids, g_s, g_o, g_e), (w_ids, w_s, w_o, w_e) in zip(got, want):
+        assert (list(g_ids), g_e) == (list(w_ids), w_e)
+        np.testing.assert_array_equal(g_o, w_o)
+        assert np.abs(np.asarray(g_s, np.int64) - np.asarray(w_s, np.int64)).max() <= bits
+    assert [r[0][0] for r in got] == ["3", "9", "5"]
+    assert got[1][3] is True
+    # The batch API on the same PCM: the same answers and the same rungs.
+    api_kw = {k: v for k, v in kw.items() if k != "top_k"}
+    st: dict = {}
+    direct = api.match_scan_escalating(pcms, filters, ts, _port(cfg2), top_k=kw["top_k"],
+                                       pool=16, stats=st, **api_kw)
+    for (g_ids, g_s, g_o, g_e), (d_ids, d_s, d_o) in zip(got, direct):
+        assert list(g_ids) == list(d_ids)
+        np.testing.assert_array_equal(g_s, d_s)
+        np.testing.assert_array_equal(g_o, d_o)
+    assert [i for i, r in enumerate(got) if r[3]] == st["escalated"]
+    assert stats["structure_kept"] == len(st["structure_kept"])
+    assert stats["overridden"] == len(st["overridden"])
+    if case == "structure_gate":
+        assert (stats["structure_kept"], stats["confident"]) == (2, 0)
+
+
+def test_escalating_server_batches_equal_reference(escalating):
+    """The power-of-4 buckets of both classes and the scan batch equal the
+    reference's; warmup runs every bucket of each class once."""
+    cfg2, filters, _, ts, pcms, _ = escalating
+    sizes = []
+    dispatch = ts.dispatch_batch
+
+    def spy(q, **kw):
+        sizes.append(q.shape[0])
+        return dispatch(q, **kw)
+
+    ts.dispatch_batch = spy
+    try:
+        with EscalatingMatchServer(ts, filters, pcms.shape[1], max_batch=5,
+                                   scan_batch=6, pool=16) as srv:
+            srv.warmup(pcms[0])
+            v = len(srv.hyps)
+    finally:
+        del ts.dispatch_batch
+    assert v == len(jax_api.scan_hypotheses(cfg2)) == 7
+    assert sizes == [1, 4, 5, v, 4 * v, 6 * v]
+    with EscalatingMatchServer(ts, filters, pcms.shape[1], pool=16) as srv:
+        assert srv.scan_batch == 70 // v == 10
+        assert srv.scan_wait == 2 * srv.max_wait
+
+
+def test_escalating_server_splits_scan_dispatch(escalating, monkeypatch):
+    """A scan batch whose V rows a query overrun K5's queries a launch goes
+    through dispatch_batch in pieces of whole queries, with the same
+    answers as one dispatch."""
+    cfg2, filters, _, ts, pcms, _ = escalating
+    kw = dict(max_batch=4, max_wait_ms=20.0, pool=16, top_k=2, threshold=1.01, hi_sim=1.01,
+              scan_batch=3, scan_wait_ms=200.0)
+
+    def serve():
+        with EscalatingMatchServer(ts, filters, pcms.shape[1], **kw) as srv:
+            return [f.result(timeout=600) for f in [srv.submit(p) for p in pcms]]
+
+    whole = serve()
+    sizes = []
+    dispatch = ts.dispatch_batch
+
+    def spy(q, **k):
+        sizes.append(q.shape[0])
+        return dispatch(q, **k)
+
+    monkeypatch.setattr(fine, "MAX_QUERIES", 15)      # two queries of V = 7 a piece
+    monkeypatch.setattr(ts, "dispatch_batch", spy)
+    split = serve()
+    assert [r[3] for r in whole] == [r[3] for r in split] == [True] * 3
+    assert 14 in sizes and 7 in sizes and max(sizes) <= 15
+    for a, b in zip(whole, split):
+        assert list(a[0]) == list(b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_array_equal(a[2], b[2])
+
+
+def test_escalating_server_refusals(escalating):
+    """A wrong length, a submit after close, and a structure gate without
+    host print rows are refused as the reference refuses them."""
+    cfg2, filters, ref, ts, pcms, _ = escalating
+    n_samples = pcms.shape[1]
+    for make, db in [(EscalatingMatchServer, ts), (jax_serve.EscalatingMatchServer, ref)]:
+        srv = make(db, filters, n_samples, max_batch=2, max_wait_ms=1.0, pool=8)
+        bad = srv.submit(np.zeros(100, np.float32))
+        with pytest.raises(ValueError, match="pinned"):
+            bad.result(timeout=10)
+        srv.close()
+        assert not srv._rigid_thread.is_alive() and not srv._scan_thread.is_alive()
+        with pytest.raises(RuntimeError, match="closed"):
+            srv.submit(np.zeros(n_samples, np.float32)).result(timeout=10)
+        no_prints = copy.copy(db)
+        no_prints.db = copy.copy(db.db)
+        no_prints.db.prints = None
+        with pytest.raises(ValueError, match="host print rows"):
+            make(no_prints, filters, n_samples, structure_gate=0.75)
+    with pytest.raises(ValueError, match="no hashprints"):
+        EscalatingMatchServer(ts, filters, 100)
+
+
+def test_escalating_server_sheds_load(escalating):
+    """A full submit queue resolves with ServerSaturated and counts as shed;
+    every accepted query still gets the answer a lone query gets."""
+    cfg2, filters, _, ts, pcms, _ = escalating
+    with EscalatingMatchServer(ts, filters, pcms.shape[1], max_batch=1, max_wait_ms=0.1,
+                               depth=1, max_queue=2, pool=16, top_k=2) as srv:
+        want = srv.match(pcms[1])
+        futs = [srv.submit(pcms[1]) for _ in range(30)]
+        outcomes = [(f.exception(timeout=600), f) for f in futs]
+        stats = dict(srv.stats)
+    shed = [f for exc, f in outcomes if exc is not None]
+    assert shed and all(isinstance(f.exception(), ServerSaturated) for f in shed)
+    assert stats["shed"] == len(shed) and stats["submitted"] == 31 - len(shed)
+    served_n = 0
+    for exc, f in outcomes:
+        if exc is None:
+            ids, sc, off, esc = f.result()
+            assert (list(ids), esc) == (list(want[0]), want[3])
+            np.testing.assert_array_equal(sc, want[1])
+            np.testing.assert_array_equal(off, want[2])
+            served_n += 1
+    assert served_n > 0
+    assert stats["confident"] + stats["structure_kept"] + stats["escalated"] == stats[
+        "submitted"]
