@@ -99,8 +99,35 @@ then, on the catalog_scale() catalog, whose rows also hold 16 synthetic
  24. api.fingerprint_stream over 8 batches of 16 x 240 s: each batch equal
      to fingerprint_batch bit for bit; its realtime factor (host clock,
      uploads included) beside the card-resident batch's (CUDA events), in
-     turns.
-Each path (phases 4, 10, 14-24) runs with the launch counters set to 0 just
+     turns;
+then the track-sharded matchers, on a mesh of the one card (db_mesh(1), D =
+1) and of 4 logical shards on it (Mesh([cuda:0] * 4), D = 4):
+ 25. dryrun_multichip(4) on the 4 logical shards: the covariance sum, a
+     sharded_score, a sharded match, match_batch and two-pass prefilter pass
+     the reference's checks, with K1 and K3 4 times and K4/K5 4 times a
+     match;
+ 26. ShardedDB over phase 5's planted catalog at D = 1 and 4: the top 10
+     equal api.match's, K3 D times a match and equal to its plain version;
+ 27. TwoStageDB(prefilter_pack4=True, mesh=) over the catalog_scale()
+     catalog at D = 1 and 4: at D = 1 all 20 queries equal the unsharded
+     DB's through match and match_batch (8, 8, 4), at both D every plant
+     first at K3's (score, offset); D times the unsharded DB's launches; a
+     dispatch_batch of 8 under torch.cuda.set_sync_debug_mode("error") (no
+     host sync); every K4/K5 call of one match equal to its plain version;
+     match latency and match_batch queries/s of the unsharded DB, D = 1 and
+     D = 4, in turns, and a torch.profiler account of a match of the
+     unsharded DB and of D = 4 (launches, host and device ms);
+ 28. MatchServer over the D = 4 DB: queries alone equal its match, and
+     under Poisson load at 50 q/s every answer equals its query's alone;
+ 29. phase 21's dense spec-scan session fed again over a D = 4 ShardedDB of
+     phase 4's DB: the same states and top tracks on every feed, the same
+     top hits where the prints are equal, 4 times the K3 launches, and every
+     K3 call of one scanned window equal to its plain version;
+ 30. ArtistDB(scaled=True, mesh=) over phase 20's banks at D = 4: every
+     known- and unknown-artist match equals the unsharded scaled banks',
+     with 4 times their K4/K5 launches, and the K4/K5 calls of one match
+     equal to their plain versions.
+Each path (phases 4, 10, 14-30) runs with the launch counters set to 0 just
 before it and read just after; comparison and timing launches are not
 counted, and a plain-version run checks that K1 and K2 did not launch. Kernel times are CUDA events over launches queued behind a
 spin kernel (cuda_ms). The last two lines are a JSON object of per-kernel
@@ -187,7 +214,7 @@ def nbytes(*tensors) -> int:
 
 
 # Launch counts of every kernel summed over the main-path runs (phases 4, 10,
-# 14-24), each read right after its run.
+# 14-30), each read right after its run.
 PATH_LAUNCHES: Counter = Counter()
 
 
@@ -676,7 +703,7 @@ def run(dev: torch.device) -> tuple[list[dict], dict]:
     log(f"phase 7 bounds: K1 query_10s {k1_bound[0]:.4f} ms ({k1_bound[1]}), "
         + ", ".join(f"K2 {k} {v[0]:.4f} ms ({v[1]})" for k, v in k2_bounds.items()) + ", "
         + ", ".join(f"K3 {k} {v[0]:.4f} ms ({v[1]})" for k, v in k3_bounds.items()))
-    del cat_db, cat_p, cat_l
+    del cat_p, cat_l
     rows = (("cqt_filterbank", "cqt", "frontend.cu", "pallas_frontend.py:68", k1_err,
              "K1 query_10s", k1_bound, k1_lib),
             ("hashprint_encoder", "fingerprint", "fingerprint.cu", "pallas_fingerprint.py:63",
@@ -693,7 +720,8 @@ def run(dev: torch.device) -> tuple[list[dict], dict]:
         if name == "hashprint_encoder":
             kernels[-1]["differing_bits"] = k2_bits
     return kernels, {"db": db, "tracks": tracks, "filters": filters_np, "long_pcm": long_pcm,
-                     "batch_ms": kern_ms}
+                     "batch_ms": kern_ms, "cat_db": cat_db, "cat_q": cat_q,
+                     "cat_plant": (t_star, o_star)}
 
 
 def noisy_excerpt(rng, track_prints, start, n, flip_rate=CFG4_FLIP):
@@ -718,13 +746,14 @@ def timed_pair(kern, plain) -> tuple[float, float]:
 
 
 def run_catalog(dev: torch.device, dense: dict) -> list[dict]:
-    """Phases 8-24: BASELINE config 4 through TwoStageDB, under HpfwConfig()
+    """Phases 8-30: BASELINE config 4 through TwoStageDB, under HpfwConfig()
     and HpfwConfig.catalog_scale(), then the packed pass 1, the server and
     the streaming surfaces on the catalog_scale() catalog, filter learning,
     the rendition scan on that catalog, known-artist mode, the streaming
     spec scan (also over phase 4's dense DB, `dense`), the escalating server,
-    file ingestion and fingerprint_stream. Returns the per-kernel results of
-    K4 (int8 and packed), K5 and the probe."""
+    file ingestion, fingerprint_stream, and the track-sharded matchers.
+    Returns the per-kernel results of K4 (int8 and packed), K5 and the
+    probe."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
     from hpfw_tpu_torch.filters import filters_from_jax
@@ -930,11 +959,20 @@ def run_catalog(dev: torch.device, dense: dict) -> list[dict]:
     run_serving(ts_p, filters_np, qs_np, truth, stream_pcm, stream_rows)
     run_learning(dev)
     scan_queries = run_renditions(ts, filters_np, stream_pcm, stream_rows)
-    run_artists(dev)
-    run_live_scan(ts_p, filters_np, stream_pcm, stream_rows, dense)
+    artists = run_artists(dev)
+    live_dense = run_live_scan(ts_p, filters_np, stream_pcm, stream_rows, dense)
     run_escalating_server(ts_p, filters_np, *scan_queries)
     run_ingest(dev, dense)
     run_stream(dev, dense)
+    # Phases 25-30: the track-sharded matchers.
+    run_dryrun(dev)
+    run_sharded_dense(dev, dense)
+    mesh_ts = run_sharded_catalog(dev, ts_p, qs_np, want, single, batched)
+    run_mesh_server(mesh_ts, qs_np, want)
+    del mesh_ts
+    torch.cuda.empty_cache()
+    run_mesh_session(dev, dense, live_dense)
+    run_mesh_artists(dev, *artists)
     source = {"fine_rescan": "fine.cu", "row_sum": "probe.cu"}
     replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
                 "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
@@ -1109,13 +1147,15 @@ def run_packed(ts, qs, qs_np, want, single, batched):
                         "bound_by": b_by, "library_ms": lib}}
 
 
-def run_load(srv, queries, truths, lam, rng, n_queries) -> dict:
+def run_load(srv, queries, truths, lam, rng, n_queries, expect=None) -> dict:
     """Submit n_queries with exponential gaps at lam queries/s (as
     benchmarks/config4_serve.py does) and wait for every answer. A future that
-    fails for another reason than ServerSaturated fails the run."""
+    fails for another reason than ServerSaturated fails the run, and so does
+    an answer that differs from expect[i] (its query's answer alone), if
+    given."""
     from hpfw_tpu_torch import ServerSaturated
 
-    lat, ok, shed, errors = [], [0], [0], []
+    lat, ok, shed, errors, wrong = [], [0], [0], [], []
     lock = threading.Lock()
     pending = [n_queries]
     all_done = threading.Event()
@@ -1127,6 +1167,9 @@ def run_load(srv, queries, truths, lam, rng, n_queries) -> dict:
                 if exc is None:
                     lat.append(time.perf_counter() - t_sub)
                     ok[0] += fut.result()[0][0] == truths[i % len(queries)]
+                    if expect is not None and not same_answer(fut.result(),
+                                                              expect[i % len(queries)]):
+                        wrong.append(i % len(queries))
                 elif isinstance(exc, ServerSaturated):
                     shed[0] += 1
                 else:
@@ -1145,6 +1188,8 @@ def run_load(srv, queries, truths, lam, rng, n_queries) -> dict:
     check(all_done.wait(timeout=300), f"offered {lam} q/s: not every query was answered")
     wall = time.perf_counter() - t_start
     check(not errors, f"offered {lam} q/s: futures failed: {errors[:3]}")
+    check(not wrong, f"offered {lam} q/s: answers of queries {sorted(set(wrong))} differ "
+          "from the same query served alone")
     served = n_queries - shed[0]
     ms = np.array(lat) * 1e3 if lat else np.array([float("nan")])
     return {"p50": float(np.percentile(ms, 50)), "p99": float(np.percentile(ms, 99)),
@@ -1460,8 +1505,9 @@ def run_renditions(ts, filters_np, stream_pcm, stream_rows) -> tuple:
     return pcms, truths
 
 
-def run_artists(dev: torch.device) -> None:
-    """Phase 20: known-artist mode at config 5's artist_eval sizes."""
+def run_artists(dev: torch.device) -> tuple:
+    """Phase 20: known-artist mode at config 5's artist_eval sizes. Returns
+    (the ArtistDB, its scaled twin, the queries) for phase 30."""
     from hpfw_tpu_torch import ArtistDB, api
     from hpfw_tpu_torch.config import HpfwConfig
     from hpfw_tpu_torch.io import synth
@@ -1554,6 +1600,7 @@ def run_artists(dev: torch.device) -> None:
         f"{ARTISTS} (K1 + {ARTISTS} x K2, {multi.shape[1]} prints) {multi_ms:.4f} ms by CUDA "
         f"events, {multi_host:.3f} ms a call by host clock (mean of 5, filter upload and "
         f"copies included)")
+    return adb, scaled, queries
 
 
 def drive_session(sess, live, chunk: int) -> list[dict]:
@@ -1608,10 +1655,11 @@ def rendition(pcm, start_s: float, seconds: float, cfg, seed: int) -> np.ndarray
     return synth.pitch_shift(clip, RENDITION_SEMITONES, cfg)[:int(seconds * cfg.sample_rate)]
 
 
-def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> None:
+def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> dict:
     """Phase 21: StreamingSession's spec-level tempo and pitch scan on the
     packed catalog_scale() TwoStageDB ts of phase 14, then over phase 4's
-    dense DB."""
+    dense DB. Returns that dense session's feed, config and trace for phase
+    29."""
     import dataclasses
 
     from hpfw_tpu_torch import StreamingSession, api
@@ -1730,6 +1778,8 @@ def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> None:
         f"{QUERY_TRACK} over phase 4's {dense['db'].n_tracks}-track DB -> {best.track_id}, "
         f"state ({sess._scan_state}, {sess.tempo}, {sess.pitch}); {n_scans} variant K3 "
         f"scans; {session_times(trace)}; launches {counts}")
+    return {"live": live, "cfg": dcfg, "kw": kw, "chunk": chunk, "trace": trace,
+            "counts": counts}
 
 
 def same_answer(a, b) -> bool:
@@ -1976,6 +2026,309 @@ def run_stream(dev: torch.device, dense: dict) -> None:
         f"read {batch_audio / (dense['batch_ms'] / 1e3):.0f}x), stream {s1:.3f}/{s2:.3f} s "
         f"= {audio_s / s1:.0f}x/{audio_s / s2:.0f}x realtime (host clock, uploads and "
         f"copies included; the first pass {first_s:.3f} s)")
+
+
+# ---- phases 25-30: the track-sharded matchers on logical shards of the card ----
+
+MESH_SHARDS = 4                     # logical shards on cuda:0 (the card is one)
+MESH_LOAD, MESH_LOAD_QUERIES = 50.0, 100
+
+
+def host_ms(fn, reps: int = 11) -> float:
+    """Median host-clock ms of fn() over reps calls (each ends on the host)."""
+    out = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t1) * 1e3)
+    return statistics.median(out)
+
+
+def run_dryrun(dev: torch.device) -> None:
+    """Phase 25: dryrun_multichip's five distributed steps on 4 logical
+    shards of the card (K1 a shard for the covariance, K3 a shard for
+    sharded_score, K4 and K5 a shard for each two-stage match)."""
+    from hpfw_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    start_path()
+    t0 = time.perf_counter()
+    dryrun_multichip(MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    run_s = time.perf_counter() - t0
+    counts = end_path()
+    d = MESH_SHARDS
+    want = {"cqt": d, "score_tracks": d, "coarse_scan_batch": 3 * d, "coarse_rescan": d,
+            "fine_rescan": 3 * d}
+    check(counts == want, f"dryrun launches {counts}, want {want}")
+    log(f"phase 25 dryrun_multichip({d}, devices=[{dev}] x {d}): the covariance sum, "
+        f"sharded_score, a sharded match, match_batch and the two-pass prefilter pass the "
+        f"reference's checks in {run_s:.2f} s; launches {counts}")
+
+
+def run_sharded_dense(dev: torch.device, dense: dict) -> None:
+    """Phase 26: ShardedDB over phase 5's planted catalog at D = 1 (the one
+    card, db_mesh(1)) and D = 4 logical shards: api.match's top 10 exactly,
+    K3 D times a match, each K3 call equal to its plain version."""
+    from hpfw_tpu_torch import ShardedDB, api, db_mesh
+    from hpfw_tpu_torch.parallel.mesh import Mesh
+
+    cat_db, cat_q = dense["cat_db"], dense["cat_q"]
+    t_star, o_star = dense["cat_plant"]
+    want = api.match(cat_q, cat_db, top_k=10)
+    check(want[0][0] == f"cat{t_star}" and int(want[2][0]) == o_star,
+          f"planted catalog: api.match top {want[0][0]} @ {want[2][0]}")
+    times = {}
+    for d, mesh in ((1, db_mesh(1)), (MESH_SHARDS, Mesh([dev] * MESH_SHARDS))):
+        t0 = time.perf_counter()
+        sdb = ShardedDB(cat_db, mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        start_path()
+        got = sdb.match(cat_q, top_k=10)
+        counts = end_path()
+        check(same_answer(got, want), f"ShardedDB D={d}: top 10 {got[0]} differs from "
+              f"api.match's {want[0]}")
+        check(counts == {"score_tracks": d}, f"ShardedDB D={d} launches {counts}")
+        held: dict = {}
+        with matcher_held_to_plain(held):
+            sdb.match(cat_q, top_k=10)
+        check(len(held.get("score_tracks", ())) == d, f"ShardedDB D={d}: held {held}")
+        times[d] = (host_ms(lambda: sdb.match(cat_q, top_k=10)),
+                    host_ms(lambda: api.match(cat_q, cat_db, top_k=10)))
+        log(f"phase 26 ShardedDB D={d} over the {cat_db.n_tracks} x "
+            f"{cat_db.prints.shape[1]}-print catalog (shards of {sdb.shards[0][0].shape[0]} "
+            f"tracks, built in {build_s:.2f} s): top 10 == api.match's (ids, scores, "
+            f"offsets), {want[0][0]} @ {int(want[2][0])} score {int(want[1][0])}; launches "
+            f"{counts}; every K3 call == its plain version; match {times[d][0]:.3f} ms "
+            f"against api.match {times[d][1]:.3f} ms (host clock, median of 11, in turns)")
+        del sdb
+
+
+def profile_match(ts, q, n: int = 5) -> dict:
+    """torch.profiler (CPU and CUDA activities) over n calls of ts.match(q),
+    per match: kernel launches (cudaLaunchKernel calls), the ops' self CPU
+    ms, the kernels' device ms, and the three kernels of most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ts.match(q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            ts.match(q)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_us(e) -> float:
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=dev_us,
+                     reverse=True)
+
+    def short(name: str) -> str:
+        for junk in ("void ", "(anonymous namespace)::", "at::native::", "at_cuda_detail::"):
+            name = name.replace(junk, "")
+        return name.split("(")[0][:48]
+
+    return {"launches": sum(e.count for e in events if e.key == "cudaLaunchKernel") / n,
+            "cpu_ms": sum(e.self_cpu_time_total for e in events) / n / 1e3,
+            "device_ms": sum(dev_us(e) for e in kernels) / n / 1e3,
+            "top": ", ".join(f"{short(e.key)} x{e.count / n:g} {dev_us(e) / n / 1e3:.3f} ms"
+                             for e in kernels[:3])}
+
+
+def run_sharded_catalog(dev: torch.device, ts_p, qs_np, want, single, batched):
+    """Phase 27: TwoStageDB(prefilter_pack4=True, mesh=) over the
+    catalog_scale() catalog at D = 1 (db_mesh(1)) and D = 4 logical shards.
+    Returns the D = 4 DB for phase 28."""
+    from hpfw_tpu_torch import TwoStageDB, db_mesh
+    from hpfw_tpu_torch.parallel.mesh import Mesh
+
+    start_path()
+    for q in qs_np:
+        ts_p.match(q, top_k=10)
+    flat_match = end_path()
+    start_path()
+    match_in_batches(ts_p, qs_np)
+    flat_batch = end_path()
+    qd = torch.from_numpy(qs_np[:8].view(np.int32)).to(dev)
+    mesh_dbs = {}
+    for d, mesh in ((1, db_mesh(1)), (MESH_SHARDS, Mesh([dev] * MESH_SHARDS))):
+        t0 = time.perf_counter()
+        mts = TwoStageDB(ts_p.db, prefilter_pack4=True, mesh=mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        shard_rows = [s.db_c.shape[0] for s in mts.shards]
+        check(len(shard_rows) == d and sum(shard_rows) == -(-ts_p.n_real // (8 * d)) * 8 * d,
+              f"D={d}: shards of {shard_rows} rows")
+        start_path()
+        res = [mts.match(q, top_k=10) for q in qs_np]
+        m_counts = end_path()
+        start_path()
+        bres = match_in_batches(mts, qs_np)
+        b_counts = end_path()
+        if d == 1:
+            check(same_results(res, single) and same_results(bres, batched),
+                  "D=1: match or match_batch differs from the unsharded DB's")
+        for i, (r, b) in enumerate(zip(res, bres)):
+            for label, x in (("match", r), ("match_batch", b)):
+                check((x[0][0], int(x[1][0]), int(x[2][0])) == want[i],
+                      f"D={d} {label} query {i}: top {x[0][0]} {x[1][0]} {x[2][0]}, "
+                      f"want {want[i]} (K3 dense)")
+        for label, got, flat in (("match", m_counts, flat_match),
+                                 ("match_batch", b_counts, flat_batch)):
+            check(got == {k: d * v for k, v in flat.items()},
+                  f"D={d} {label} launches {got}, want {d} x {flat}")
+        # No host sync anywhere in a dispatch: every shard's work is queued
+        # before the caller reads anything.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = mts.dispatch_batch(qd)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        k = min(-(-min(ts_p.db.cfg.fine_candidates, shard_rows[0]) // 8) * 8, shard_rows[0])
+        check(tuple(out.shape) == (8, 3, d * k), f"D={d}: dispatch_batch shape "
+              f"{tuple(out.shape)}, want (8, 3, {d} x {k})")
+        held: dict = {}
+        with matcher_held_to_plain(held):
+            mts.match(qs_np[0], top_k=10)
+        per_match = {k: len(v) for k, v in held.items()}
+        check(per_match == {k: d * v // len(qs_np) for k, v in flat_match.items()},
+              f"D={d}: one match held {per_match}")
+        mesh_dbs[d] = mts
+        log(f"phase 27 TwoStageDB(mesh) D={d}: built in {build_s:.1f} s (shards of "
+            f"{shard_rows[0]} tracks); {len(qs_np)}/{len(qs_np)} planted tracks first at "
+            f"K3's (score, offset) through match and match_batch (8, 8, 4)"
+            + (", identical to the unsharded DB (ids, scores, offsets of the top 10)"
+               if d == 1 else "")
+            + f"; launches {len(qs_np)} x match {m_counts}, match_batch {b_counts} (= {d} x "
+            f"the unsharded DB's); dispatch_batch of 8 with no host sync; K4 and K5 of one "
+            f"match == their plain versions ({per_match})")
+    # The three in turns, in one call.
+    for label, which in (("unsharded", ts_p), ("D=1", mesh_dbs[1]),
+                         (f"D={MESH_SHARDS}", mesh_dbs[MESH_SHARDS]),
+                         (f"D={MESH_SHARDS}", mesh_dbs[MESH_SHARDS]), ("D=1", mesh_dbs[1]),
+                         ("unsharded", ts_p)):
+        log_match_times(f"phase 27 {label}", match_times(which, qs_np))
+    for label, which in (("unsharded", ts_p), (f"D={MESH_SHARDS}", mesh_dbs[MESH_SHARDS])):
+        prof = profile_match(which, qs_np[0])
+        log(f"phase 27 profile {label} (torch.profiler, 5 matches): a match makes "
+            f"{prof['launches']:.0f} kernel launches, {prof['cpu_ms']:.3f} ms of ops on the "
+            f"host (self CPU, profiled), {prof['device_ms']:.3f} ms of kernels on the card; "
+            f"most device time: {prof['top']}")
+    del mesh_dbs[1]
+    torch.cuda.empty_cache()
+    return mesh_dbs[MESH_SHARDS]
+
+
+def run_mesh_server(mts, qs_np, want) -> None:
+    """Phase 28: MatchServer over the D = 4 TwoStageDB: queries alone equal
+    mts.match, then Poisson load where every answer equals its query's
+    answer alone."""
+    from hpfw_tpu_torch import MatchServer
+
+    direct = [mts.match(q) for q in qs_np]
+    rng = np.random.default_rng(3)
+    start_path()
+    with MatchServer(mts, qs_np.shape[1], **SERVE_KW) as srv:
+        srv.warmup(qs_np[0])
+        alone = [srv.match(q) for q in qs_np]
+        check(same_results(alone, direct), "D=4 server: a query alone differs from ts.match")
+        r = run_load(srv, qs_np, [w[0] for w in want], MESH_LOAD, rng, MESH_LOAD_QUERIES,
+                     expect=alone)
+    counts = end_path()
+    check(all(counts.get(k, 0) > 0 for k in ("coarse_scan_batch_packed", "coarse_rescan",
+                                              "fine_rescan")),
+          f"D=4 server launches {counts}")
+    log(f"phase 28 MatchServer over the D={MESH_SHARDS} DB: {len(alone)}/{len(alone)} "
+        f"queries alone == ts.match; offered {MESH_LOAD:.0f} q/s ({r['n']} queries): every "
+        f"answer == its query's alone, p50 {r['p50']:.3f} ms, p99 {r['p99']:.3f} ms, "
+        f"achieved {r['achieved']:.1f} q/s, shed {r['shed']:.1%}, recall {r['recall']:.3f}; "
+        f"launches {counts}")
+
+
+def run_mesh_session(dev: torch.device, dense: dict, live_dense: dict) -> None:
+    """Phase 29: phase 21's dense spec-scan session fed again over a D = 4
+    ShardedDB of phase 4's DB: the same states and top tracks on every feed,
+    the same top hits where the prints are equal, K3 4 times as often."""
+    from hpfw_tpu_torch import ShardedDB, StreamingSession
+    from hpfw_tpu_torch.parallel.mesh import Mesh
+
+    sdb = ShardedDB(dense["db"], Mesh([dev] * MESH_SHARDS))
+    sess = StreamingSession(sdb, dense["filters"], live_dense["cfg"], **live_dense["kw"])
+    start_path()
+    trace = drive_session(sess, live_dense["live"], live_dense["chunk"])
+    counts = end_path()
+    flat_counts = live_dense["counts"]
+    same_prints = 0
+    for a, b in zip(trace, live_dense["trace"]):
+        check(a["state"] == b["state"] and a["matched"] == b["matched"]
+              and (a["best"] is None) == (b["best"] is None)
+              and (a["best"] is None or a["best"].track_id == b["best"].track_id),
+              f"sharded session diverges: {a['state']} {a['best']} vs {b['state']} "
+              f"{b['best']}")
+        if a["matched"] and np.array_equal(a["window"], b["window"]) and (
+                (a["stack"] is None and b["stack"] is None)
+                or (a["stack"] is not None and b["stack"] is not None
+                    and np.array_equal(a["stack"], b["stack"]))):
+            same_prints += 1
+            check(a["last"] == b["last"],
+                  f"equal prints, different answers: {a['last']} vs {b['last']}")
+    check(len(trace) == len(live_dense["trace"])
+          and counts.get("score_tracks", 0) == MESH_SHARDS * flat_counts["score_tracks"]
+          and all(counts.get(k) == flat_counts.get(k) for k in ("cqt", "fingerprint")),
+          f"sharded session launches {counts} against the dense session's {flat_counts}")
+    stack = next(r["stack"] for r in trace if r["matched"] and r["stack"] is not None)
+    held: dict = {}
+    with matcher_held_to_plain(held):
+        for v in stack:
+            sdb.match(v, top_k=2)
+    check(len(held.get("score_tracks", ())) == MESH_SHARDS * len(stack),
+          f"sharded session: held {({k: len(x) for k, x in held.items()})}")
+    n_matches = sum(r["matched"] for r in trace)
+    log(f"phase 29 StreamingSession over a D={MESH_SHARDS} ShardedDB of phase 4's DB, "
+        f"phase 21's {DENSE_LIVE_SECONDS:.0f} s rendition: the same states and top tracks "
+        f"on all {len(trace)} feeds as over the dense DB, the same top hits on the "
+        f"{same_prints} of {n_matches} matches with equal prints; -> "
+        f"{trace[-1]['best'].track_id}; {session_times(trace)}; launches {counts}; the "
+        f"{len(stack)} variants of one scanned window, K3 == its plain version on every call")
+
+
+def run_mesh_artists(dev: torch.device, adb, scaled, queries) -> None:
+    """Phase 30: ArtistDB(scaled=True, mesh=) over phase 20's banks at D = 4:
+    the scaled banks' answers, known and unknown artist, K4 and K5 4 times
+    as often, each call of one match equal to its plain version."""
+    from hpfw_tpu_torch import ArtistDB
+    from hpfw_tpu_torch.parallel.mesh import Mesh
+
+    sharded = ArtistDB(adb.cfg, adb.banks, scaled=True, stride=4,
+                       mesh=Mesh([dev] * MESH_SHARDS), device=dev)
+    asks = [(q, dict(artist=name)) for name, _, q in queries] + [(q, {}) for _, _, q in queries]
+    start_path()
+    want = [scaled.match(q, **kw) for q, kw in asks]
+    flat = end_path()
+    start_path()
+    t0 = time.perf_counter()
+    got = [sharded.match(q, **kw) for q, kw in asks]
+    match_s = time.perf_counter() - t0
+    counts = end_path()
+    for (q, kw), g, w in zip(asks, got, want):
+        check(same_answer(g, w), f"sharded artist match {kw}: {g[0][:3]} vs {w[0][:3]}")
+    check(all(counts.get(k, 0) == MESH_SHARDS * flat.get(k, 0) > 0
+              for k in ("coarse_scan", "fine_rescan")) and "cqt" in counts,
+          f"sharded artist launches {counts} against the unsharded banks' {flat}")
+    held: dict = {}
+    with matcher_held_to_plain(held):
+        sharded.match(queries[0][2])
+    check({k: len(v) for k, v in held.items()} == {
+        "coarse_scan": MESH_SHARDS * len(adb.artists),
+        "fine_rescan": MESH_SHARDS * len(adb.artists)}, f"sharded artist: held {held}")
+    log(f"phase 30 ArtistDB(scaled=True, mesh=D={MESH_SHARDS}) over phase 20's "
+        f"{len(adb.artists)} banks: {len(asks)} matches (known and unknown artist) == the "
+        f"unsharded scaled banks' (ids, scores, offsets) in {match_s:.2f} s; launches "
+        f"{counts} (unsharded {flat}); an unknown-artist match's K4 and K5 == their plain "
+        f"versions on every call")
+
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ Public surface (the slice of hpfw_tpu's that is ported so far):
     learn_filters(corpus) -> projection filters
     fingerprint_scan_batch / match_scan_escalating       (rendition scans)
     fingerprint_multi, ArtistDB                          (known-artist mode)
+    db_mesh / Mesh, ShardedDB, TwoStageDB(mesh=)         (track-sharded matching)
 """
 
 from .api import (FingerprintDB, build_db, build_db_from_files, fingerprint,
@@ -29,6 +30,8 @@ from .api import (FingerprintDB, build_db, build_db_from_files, fingerprint,
 from .artist import ArtistDB
 from .config import DEFAULT_CONFIG, HpfwConfig
 from .match.scaled import TwoStageDB
+from .match.sharded import ShardedDB
+from .parallel.mesh import Mesh, db_mesh
 from .serve import EscalatingMatchServer, MatchServer, ServerSaturated
 from .streaming.pool import StreamingPool
 from .streaming.session import ChunkedExtractor, StreamingSession
@@ -36,7 +39,7 @@ from .streaming.session import ChunkedExtractor, StreamingSession
 __version__ = "0.1.0"
 
 __all__ = [
-    "FingerprintDB", "TwoStageDB", "build_db", "build_db_from_files", "fingerprint",
+    "FingerprintDB", "TwoStageDB", "ShardedDB", "Mesh", "db_mesh", "build_db", "build_db_from_files", "fingerprint",
     "fingerprint_stream", "match", "learn_filters", "fingerprint_scan_batch",
     "scan_hypotheses", "match_scan_escalating", "fingerprint_multi", "ArtistDB",
     "MatchServer", "EscalatingMatchServer", "ServerSaturated", "StreamingPool",

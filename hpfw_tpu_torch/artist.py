@@ -30,16 +30,13 @@ class ArtistDB:
     bank on another device is re-homed to `device` (default: the card;
     raises when torch sees none). scaled=True backs each artist with a TwoStageDB
     (coarse scan + exact fine rescan, K4 and K5 on the card), derived on the
-    artist's first match; `stride` applies to every bank. `mesh=` (a sharded
-    TwoStageDB) is not ported yet.
+    artist's first match; `stride` and `mesh` (parallel/mesh.py: every bank
+    sharded over it) apply to every bank.
     """
 
     def __init__(self, cfg: HpfwConfig, banks: dict, *, scaled: bool = False,
                  stride: int | None = None, mesh=None,
                  device: str | torch.device | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded TwoStageDB is not ported yet (ROADMAP A7)")
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else default_device()
         self.banks = {}
@@ -51,7 +48,7 @@ class ArtistDB:
                                    db.lengths, device=self.device)
             self.banks[name] = db
         self.scaled = scaled
-        self.stride = stride
+        self._ts_kw = dict(stride=stride, mesh=mesh)
         self._ts_banks: dict = {}
 
     def two_stage(self, artist: str):
@@ -59,7 +56,7 @@ class ArtistDB:
         if artist not in self._ts_banks:
             from .match.scaled import TwoStageDB
 
-            self._ts_banks[artist] = TwoStageDB(self.banks[artist], stride=self.stride)
+            self._ts_banks[artist] = TwoStageDB(self.banks[artist], **self._ts_kw)
         return self._ts_banks[artist]
 
     @property

@@ -49,6 +49,15 @@ class CovarianceState:
             return cls(z["xtx"], z["xsum"], int(z["count"]))
 
 
+def track_moments(pcm: np.ndarray, cfg: HpfwConfig, device: torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """One track's partial moments on device, without a host sync: (X^T X
+    (D, D), the column sum (D,), the row count) of its context vectors. The
+    track must span at least context_w frames."""
+    x = context_matrix(frontend.cqt(torch.from_numpy(pcm).to(device), cfg), cfg)
+    return precise_matmul(x.T, x), x.sum(dim=0), x.shape[0]
+
+
 def accumulate_track(state: CovarianceState, pcm: np.ndarray, cfg: HpfwConfig, *,
                      device: str | torch.device | None = None) -> CovarianceState:
     """Fold one training track into the covariance accumulator; the track's
@@ -57,12 +66,9 @@ def accumulate_track(state: CovarianceState, pcm: np.ndarray, cfg: HpfwConfig, *
     if cfg.n_frames(pcm.shape[0]) < cfg.context_w:
         return state
     dev = torch.device(device) if device is not None else default_device()
-    x = context_matrix(frontend.cqt(torch.from_numpy(pcm).to(dev), cfg), cfg)
-    return CovarianceState(
-        state.xtx + precise_matmul(x.T, x).cpu().numpy(),
-        state.xsum + x.sum(dim=0).cpu().numpy(),
-        state.count + x.shape[0],
-    )
+    xtx, xsum, n = track_moments(pcm, cfg, dev)
+    return CovarianceState(state.xtx + xtx.cpu().numpy(), state.xsum + xsum.cpu().numpy(),
+                           state.count + n)
 
 
 def finalize_filters(state: CovarianceState, cfg: HpfwConfig) -> np.ndarray:

@@ -1,6 +1,7 @@
-"""Two-stage coarse -> fine matcher for catalog-scale databases, one device.
+"""Two-stage coarse -> fine matcher for catalog-scale databases.
 
-Counterpart of hpfw_tpu/match/scaled.py (its single-device Pallas layout).
+Counterpart of hpfw_tpu/match/scaled.py: its Pallas layout, on one device
+or sharded over a mesh of devices (parallel/mesh.py).
 
 Stage 1 (coarse): majority-vote coarse prints (ops/coarse.py) of every track
 are correlated with the coarse query at every coarse offset, and each track
@@ -21,6 +22,12 @@ phases, optionally a channel prefix, optionally nibble-packed rows) and
 rescans only the top `prefilter` tracks per query with every phase (the
 block-diagonal rescan).
 
+Sharded over a mesh, each shard runs the same two stages on its own
+contiguous tracks, with the prefilter capped at its track count, and the
+shards' fixed-size (B, 3, K) candidate blocks are gathered along K onto the
+mesh's first device in shard order, their track indices made global, as the
+reference's shard_map and tiled all_gather do.
+
 Every candidate ranking breaks ties toward the lower track index, the
 phase choice toward the first phase, and offsets toward the first offset,
 so the port returns the reference's ids, scores and offsets exactly.
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,12 +49,23 @@ from ..ops.coarse_scan import (coarse_rescan, coarse_scan, coarse_scan_batch,
                                coarse_scan_batch_packed, flat_width, flatten_coarse,
                                pack_coarse_nibbles)
 from ..ops.fine import fine_rescan_batch, plane_pad
+from ..parallel.mesh import Mesh, gather_blocks, split_tracks
 from .stretch import print_variants, stretch_grid
 
 # Elements of the unpacked (tracks x prints x 64) intermediate per chunk of
 # the coarse derivation.
 _DERIVE_ELEMS = 1 << 27
 _KEY_SHIFT = 1 << 32
+
+
+def _top_indices(values: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest int32 values along the last axis, descending,
+    the lower index first on ties, as lax.top_k orders them. torch.topk
+    promises no order among equal values, so it ranks a unique composite
+    key, value * 2^32 + (2^32 - 1 - index). Returns int64."""
+    index = torch.arange(values.shape[-1], dtype=torch.int64, device=values.device)
+    key = values.to(torch.int64) * _KEY_SHIFT + (_KEY_SHIFT - 1 - index)
+    return torch.topk(key, k, dim=-1).indices
 
 
 def _pool_candidates(best_corr: torch.Tensor, pool: int, rows: int | None = None,
@@ -56,19 +75,14 @@ def _pool_candidates(best_corr: torch.Tensor, pool: int, rows: int | None = None
     first candidate (the host ranking drops duplicates). Returns int64.
     Like the reference's Pallas path it takes min(pool, T) rounded up to 8
     distinct tracks where there are that many; exact takes min(pool, T), as
-    its XLA path does. rows: rank only the first rows tracks.
-
-    torch.topk promises no order among equal values, so it ranks a unique
-    composite key, score * 2^32 + (2^32 - 1 - index)."""
+    its XLA path does. rows: rank only the first rows tracks."""
     if rows is not None:
         best_corr = best_corr[..., :rows]
     t = best_corr.shape[-1]
     k0 = max(1, min(pool, t))
     k = -(-k0 // 8) * 8
     kk = k0 if exact else min(k, t)
-    index = torch.arange(t, dtype=torch.int64, device=best_corr.device)
-    key = best_corr.to(torch.int64) * _KEY_SHIFT + (_KEY_SHIFT - 1 - index)
-    cand = torch.topk(key, kk, dim=-1).indices
+    cand = _top_indices(best_corr, kk)
     if k > kk:
         cand = torch.cat([cand, cand[..., :1].expand(*cand.shape[:-1], k - kk)], dim=-1)
     return cand
@@ -164,11 +178,12 @@ def _coarse_pool_twopass(queries, db_c, db_c1, *, stride, phases, phases1, prefi
 
 def _two_stage(queries, prints, lengths, db_c, db_c1, *, stride, pool, fine_window,
                lc_true, kind, channels, phases, phases1, prefilter, channels1, packed1,
-               pool_rows=None, pool_exact=False):
+               pool_rows=None, pool_exact=False, base=0):
     """Batched two-stage match of B equal-length queries (B, N, 2) int32:
-    (B, 3, K) int32 [scores, track index, offsets]. packed1: db_c1 is
+    (B, 3, K) int32 [scores, track index + base, offsets]. packed1: db_c1 is
     nibble-packed (read by pass 1 only); pool_rows, pool_exact: how the
-    first pool ranks (_pool_candidates)."""
+    first pool ranks (_pool_candidates); base: the global index of the
+    first track (a shard's)."""
     if phases > 1 and prefilter:
         cand, centers = _coarse_pool_twopass(
             queries, db_c, db_c1, stride=stride, phases=phases, phases1=phases1,
@@ -188,23 +203,61 @@ def _two_stage(queries, prints, lengths, db_c, db_c1, *, stride, pool, fine_wind
     cand = cand.to(torch.int32)
     s, o = fine_rescan_batch(queries, prints, lengths, cand, starts.to(torch.int32),
                              n_fine=n_fine)
-    return torch.stack([s, cand, o], dim=1)
+    return torch.stack([s, cand + base if base else cand, o], dim=1)
+
+
+def _derive_coarse(prints, lengths, *, stride, kind, channel_counts):
+    """Flat coarse DBs of (T, L, 2) prints on their device, one per channel
+    count (prefixes of the first), zero past each track's lengths // stride
+    windows. Derived in chunks of tracks: the unpack intermediate is 256x
+    the packed bytes."""
+    t, l, _ = prints.shape
+    lc = l // stride
+    flats = [torch.zeros((t, flat_width(lc, c)), dtype=torch.int8, device=prints.device)
+             for c in channel_counts]
+    chunk = max(1, min(t, _DERIVE_ELEMS // max(l * 64, 1)))
+    window = torch.arange(lc, device=prints.device)
+    for i in range(0, t, chunk):
+        c = coarse_ops.coarse_pm1(prints[i:i + chunk], stride, kind=kind,
+                                  channels=channel_counts[0])
+        inside = window < coarse_ops.coarse_lengths(lengths[i:i + chunk], stride)[:, None]
+        c = torch.where(inside[..., None], c, 0)
+        for flat, ch in zip(flats, channel_counts):
+            flat.view(t, -1, ch)[i:i + chunk, :lc] = c[..., :ch]
+    return flats
+
+
+class Shard(NamedTuple):
+    """One device's part of a TwoStageDB: (T_s, L, 2) int32 prints, (T_s,)
+    lengths, the flat coarse DB and the pass-1 DB (db_c itself when pass 1
+    reads the same rows)."""
+    prints: torch.Tensor
+    lengths: torch.Tensor
+    db_c: torch.Tensor
+    db_c1: torch.Tensor
 
 
 class TwoStageDB:
-    """Catalog-scale database on one device: prints, lengths and the flat
-    int8 coarse DB, plus a pass-1 DB db_c1 when prefilter_channels <
-    coarse_channels (a channel prefix) or prefilter_pack4 (the pass-1 rows
-    nibble-packed, two features a byte; their results are identical).
+    """Catalog-scale database: prints, lengths and the flat int8 coarse DB,
+    plus a pass-1 DB db_c1 when prefilter_channels < coarse_channels (a
+    channel prefix) or prefilter_pack4 (the pass-1 rows nibble-packed, two
+    features a byte; their results are identical).
 
-    device defaults to the source FingerprintDB's. On a CUDA device the
-    coarse and fine stages run through K4 and K5; on the CPU through their
-    plain versions. The knobs default to db.cfg's, as in the reference.
+    On one device (mesh=None) they sit on `device`, by default the source
+    FingerprintDB's, as prints, lengths, db_c and db_c1. With a mesh
+    (parallel/mesh.py) the track axis is padded to a multiple of mesh size
+    x 8 and split into contiguous shards, shard i on mesh entry i, uploaded
+    from the DB's host prints and derived there a shard at a time; `shards`
+    holds every part (on one device, the one shard), and matching runs in
+    every shard before the candidate blocks meet on the first device,
+    `device`. On a CUDA device the coarse and fine stages run through K4
+    and K5; on the CPU through their plain versions. The knobs default to
+    db.cfg's, as in the reference.
     """
 
     _CACHE_VERSION = 1
     # How the pool ranks: every row, in groups of 8 (the reference's Pallas
-    # layout), unless a loaded cache of its unpadded layouts says otherwise.
+    # layout), unless a loaded cache of its other layouts says otherwise.
     _pool_rows: int | None = None
     _pool_exact = False
 
@@ -216,12 +269,9 @@ class TwoStageDB:
                  prefilter_phases: int | None = None,
                  prefilter_channels: int | None = None,
                  prefilter_pack4: bool | None = None,
-                 mesh=None,
+                 mesh: Mesh | None = None,
                  device: str | torch.device | None = None):
         cfg = db.cfg
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded TwoStageDB is not ported yet (ROADMAP A7)")
         self.db = db
         self.stride = stride if stride is not None else cfg.db_downsample
         self.coarse_kind = coarse_kind if coarse_kind is not None else cfg.coarse_kind
@@ -247,62 +297,82 @@ class TwoStageDB:
             raise ValueError("query_phases must divide the coarse stride")
         if self.prefilter_phases > 1 and self.stride % self.prefilter_phases:
             raise ValueError("prefilter_phases must divide the coarse stride")
-        self.device = torch.device(device) if device is not None else db.device
-        if self.device == db.device:
-            prints, lengths = db.device_arrays()
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.first:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.first}")
+            self.device = mesh.first
+            # Whole 8-track tiles in every shard: the reference pads to mesh
+            # size x coarse_tile, and the port's tile is 8 (ROADMAP C).
+            unit = mesh.size * 8
+            prints = np.ascontiguousarray(db.prints, dtype=np.uint32).view(np.int32)
+            lengths = db.lengths
+            pad = -prints.shape[0] % unit
+            if pad:
+                prints = np.concatenate([prints, np.zeros((pad,) + prints.shape[1:],
+                                                          prints.dtype)])
+                lengths = np.concatenate([lengths, np.zeros(pad, lengths.dtype)])
+            parts = zip(split_tracks(prints, mesh), split_tracks(lengths, mesh))
         else:
-            prints = _to_tensor_prints(db.prints, self.device)
-            lengths = torch.from_numpy(db.lengths).to(self.device)
-        # Whole 8-track tiles, as the reference pads its track axis for its
-        # kernels: empty tracks score 0 and drop at the n_real cut, and a DB
-        # and its saved cache give the same results in either package.
-        pad = -prints.shape[0] % 8
-        if pad:
-            prints = torch.cat([prints, prints.new_zeros((pad,) + prints.shape[1:])])
-            lengths = torch.cat([lengths, lengths.new_zeros(pad)])
-        self.prints, self.lengths = prints, lengths
+            self.device = torch.device(device) if device is not None else db.device
+            if self.device == db.device:
+                prints, lengths = db.device_arrays()
+            else:
+                prints = _to_tensor_prints(db.prints, self.device)
+                lengths = torch.from_numpy(db.lengths).to(self.device)
+            # Whole 8-track tiles, as the reference pads its track axis for its
+            # kernels: empty tracks score 0 and drop at the n_real cut, and a DB
+            # and its saved cache give the same results in either package.
+            pad = -prints.shape[0] % 8
+            if pad:
+                prints = torch.cat([prints, prints.new_zeros((pad,) + prints.shape[1:])])
+                lengths = torch.cat([lengths, lengths.new_zeros(pad)])
+            parts = [(prints, lengths)]
         self.n_real = db.n_tracks
-        self.lc_true = self.prints.shape[1] // self.stride
+        self.lc_true = db.prints.shape[1] // self.stride
         counts = [self.coarse_channels]
         if self.prefilter_channels < self.coarse_channels:
             counts.append(self.prefilter_channels)
-        flats = self._derive_coarse(counts)
-        self.db_c = flats[0]
-        self.db_c1 = pack_coarse_nibbles(flats[-1]) if self.prefilter_pack4 else flats[-1]
+        shards = []
+        for p, ln in parts:
+            flats = _derive_coarse(p, ln, stride=self.stride, kind=self.coarse_kind,
+                                   channel_counts=counts)
+            shards.append(Shard(p, ln, flats[0], pack_coarse_nibbles(flats[-1])
+                                if self.prefilter_pack4 else flats[-1]))
+        self._set_shards(shards)
 
-    def _derive_coarse(self, channel_counts):
-        """Flat coarse DBs, one per channel count (prefixes of the first), zero
-        past each track's lengths // stride windows. Derived in chunks of
-        tracks: the unpack intermediate is 256x the packed bytes."""
-        t, l, _ = self.prints.shape
-        lc = self.lc_true
-        flats = [torch.zeros((t, flat_width(lc, c)), dtype=torch.int8, device=self.device)
-                 for c in channel_counts]
-        chunk = max(1, min(t, _DERIVE_ELEMS // max(l * 64, 1)))
-        window = torch.arange(lc, device=self.device)
-        for i in range(0, t, chunk):
-            c = coarse_ops.coarse_pm1(self.prints[i:i + chunk], self.stride,
-                                      kind=self.coarse_kind, channels=channel_counts[0])
-            inside = window < coarse_ops.coarse_lengths(self.lengths[i:i + chunk],
-                                                        self.stride)[:, None]
-            c = torch.where(inside[..., None], c, 0)
-            for flat, ch in zip(flats, channel_counts):
-                flat.view(t, -1, ch)[i:i + chunk, :lc] = c[..., :ch]
-        return flats
+    def _set_shards(self, shards: list[Shard]) -> None:
+        """Hold the parts; on one device also as prints, lengths, db_c and
+        db_c1 (None under a mesh)."""
+        self.shards = shards
+        (self.prints, self.lengths, self.db_c, self.db_c1) = (
+            shards[0] if self.mesh is None else (None,) * 4)
+
+    @property
+    def devices(self) -> list[torch.device]:
+        """The distinct devices the shards sit on, the first device first."""
+        return self.mesh.distinct if self.mesh is not None else [self.device]
 
     # -- derived-state persistence: the reference's format_version=1 cache --
 
     def save(self, path: str) -> None:
-        """Write the derived state in the reference's single-device layout:
-        flat coarse rows (and coarse1), tight word planes, lengths, filters,
-        track ids and a JSON manifest."""
+        """Write the derived state in the reference's Pallas layout: flat
+        coarse rows (and coarse1), word planes, lengths, filters, track ids
+        and a JSON manifest. On one device the planes pack tight; under a
+        mesh every track slot has its own WIDTH of headroom, and the manifest
+        holds the mesh size, as the reference's sharded layout does."""
         os.makedirs(path, exist_ok=True)
-        t = self.db_c.shape[0]
+        t_shard = self.shards[0].db_c.shape[0]
 
         def dump(name, arr):
             np.save(os.path.join(path, name + ".npy"), np.asarray(arr))
 
-        d0, d1, lpad = plane_pad(self.prints.cpu().numpy().view(np.uint32))
+        def whole(field):
+            return torch.cat([getattr(s, field).cpu() for s in self.shards])
+
+        prints = whole("prints")
+        d0, d1, lpad = plane_pad(prints.numpy().view(np.uint32), tight=self.mesh is None)
         manifest = {
             "format_version": self._CACHE_VERSION,
             "stride": int(self.stride),
@@ -310,51 +380,58 @@ class TwoStageDB:
             "coarse_channels": int(self.coarse_channels),
             "prefilter_channels": int(self.prefilter_channels),
             "prefilter_pack4": self.prefilter_pack4,
-            # The reference's kernels scan whole tiles of this many tracks.
-            "coarse_tile": min(128, t & -t),
+            # The reference's kernels scan whole tiles of this many tracks a shard.
+            "coarse_tile": min(128, t_shard & -t_shard),
             "lc_true": int(self.lc_true),
             "n_real": int(self.n_real),
             "use_pallas_fine": True,
             "use_pallas_coarse": True,
-            "mesh_size": 0,
+            "mesh_size": self.mesh.size if self.mesh is not None else 0,
             "config_json": self.db.cfg.to_json(),
             "lpad": int(lpad),
-            "l_true": int(self.prints.shape[1]),
+            "l_true": int(prints.shape[1]),
         }
         dump("d0", d0)
         dump("d1", d1)
-        dump("coarse", self.db_c.cpu())
-        if self.db_c1 is not self.db_c:
-            dump("coarse1", self.db_c1.cpu())
-        dump("lengths", self.lengths.cpu())
+        dump("coarse", whole("db_c"))
+        if self.shards[0].db_c1 is not self.shards[0].db_c:
+            dump("coarse1", whole("db_c1"))
+        dump("lengths", whole("lengths"))
         dump("filters", self.db.filters)
         dump("track_ids", np.array(self.db.track_ids))
         with open(os.path.join(path, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
 
     @classmethod
-    def load(cls, path: str, *,
+    def load(cls, path: str, *, mesh: Mesh | None = None,
              device: str | torch.device | None = None) -> "TwoStageDB":
-        """Rebuild a TwoStageDB on device (default: the card; raises
-        when torch sees none) from a save() directory of either package, without re-deriving.
+        """Rebuild a TwoStageDB from a save() directory of either package,
+        without re-deriving: on device (default: the card; raises when torch
+        sees none), or over a mesh.
 
-        Every single-device layout of the reference loads: flat coarse rows
-        and word planes (use_pallas_fine and use_pallas_coarse, what it
-        writes on a TPU and what save() writes), and its default elsewhere,
-        (T, lc, C) coarse prints beside word planes or beside a (T, L, 2)
-        prints array (use_pallas_fine=False), with the track axis unpadded.
-        Those coarse rows are flattened and the tracks padded to whole
-        8-track tiles as __init__ does, and the pool ranks only the real
-        tracks, as the unpadded reference does; without word planes it also
-        pools exactly min(pool, tracks) of them, as its lax.top_k does."""
+        As in the reference, a cache written without a mesh loads without
+        one, and a mesh cache needs a mesh of its size. Every layout of the
+        reference loads: flat coarse rows and word planes (use_pallas_fine
+        and use_pallas_coarse, what it writes on a TPU and what save()
+        writes), and (T, lc, C) coarse prints beside word planes or beside a
+        (T, L, 2) prints array (use_pallas_fine=False), whose rows are
+        flattened. On one device the latter two come with the track axis
+        unpadded: the tracks are padded to whole 8-track tiles as __init__
+        does, and the pool ranks only the real tracks, as the unpadded
+        reference does. A mesh cache splits into shards at its own padded
+        length, never padded again, so every shard holds the reference's
+        rows. Without word planes the pool is exactly min(pool, tracks), as
+        the reference's lax.top_k takes it."""
         with open(os.path.join(path, "manifest.json")) as f:
             m = json.load(f)
         if m["format_version"] != cls._CACHE_VERSION:
             raise ValueError(f"unsupported two-stage cache version {m['format_version']}")
-        if m["mesh_size"]:
+        mesh_size = mesh.size if mesh is not None else 0
+        if mesh_size != m["mesh_size"]:
             raise ValueError(
-                f"the cache was built for a mesh of {m['mesh_size']} devices; the sharded "
-                "TwoStageDB is not ported yet (ROADMAP A7): rebuild the cache without a mesh")
+                f"cache was built for mesh size {m['mesh_size']}, "
+                f"loading with mesh size {mesh_size}; rebuild the cache for "
+                "this layout")
 
         def grab(name):
             return np.load(os.path.join(path, name + ".npy"), mmap_mode="r")
@@ -369,7 +446,10 @@ class TwoStageDB:
             prints[..., 1] = grab("d1")[: t * lpad].reshape(t, lpad)[:, :l]
         else:
             prints = np.array(grab("prints"), dtype=np.uint32)
-        dev = torch.device(device) if device is not None else default_device()
+        if mesh is not None:
+            dev = mesh.first
+        else:
+            dev = torch.device(device) if device is not None else default_device()
         self = cls.__new__(cls)
         self.db = FingerprintDB(
             cfg, np.load(os.path.join(path, "filters.npy")),
@@ -383,25 +463,33 @@ class TwoStageDB:
         self.query_phases = cfg.coarse_query_phases
         self.prefilter = cfg.coarse_prefilter
         self.prefilter_phases = cfg.coarse_prefilter_phases
+        self.mesh = mesh
         self.device = dev
         self.n_real = n_real
         self.lc_true = m["lc_true"]
-        prints = _to_tensor_prints(prints, dev)
-        lengths = torch.from_numpy(lengths).to(dev)
-        db_c = torch.from_numpy(np.array(grab("coarse"))).to(dev)
+        prints = np.ascontiguousarray(prints).view(np.int32)
+        db_c = np.array(grab("coarse"))
         if m["use_pallas_coarse"]:
-            self.db_c = db_c
-            self.db_c1 = (torch.from_numpy(np.array(grab("coarse1"))).to(dev)
-                          if (self.prefilter_channels < self.coarse_channels
-                              or self.prefilter_pack4) else self.db_c)
+            db_c1 = (np.array(grab("coarse1"))
+                     if (self.prefilter_channels < self.coarse_channels
+                         or self.prefilter_pack4) else None)
         else:
-            pad = -t % 8
-            prints = torch.cat([prints, prints.new_zeros((pad,) + prints.shape[1:])])
-            lengths = torch.cat([lengths, lengths.new_zeros(pad)])
-            db_c = flatten_coarse(db_c)
-            self.db_c = self.db_c1 = torch.cat([db_c, db_c.new_zeros((pad, db_c.shape[1]))])
-            self._pool_rows, self._pool_exact = n_real, not m["use_pallas_fine"]
-        self.prints, self.lengths = prints, lengths
+            db_c = flatten_coarse(torch.from_numpy(db_c)).numpy()
+            db_c1 = None
+            if mesh is None:
+                pad = -t % 8
+                prints = np.concatenate([prints, np.zeros((pad,) + prints.shape[1:],
+                                                          prints.dtype)])
+                lengths = np.concatenate([lengths, np.zeros(pad, lengths.dtype)])
+                db_c = np.concatenate([db_c, np.zeros((pad, db_c.shape[1]), db_c.dtype)])
+                self._pool_rows = n_real
+            self._pool_exact = not m["use_pallas_fine"]
+        split = ((lambda a: split_tracks(a, mesh)) if mesh is not None
+                 else (lambda a: [torch.from_numpy(a).to(dev)]))
+        coarse = split(db_c)
+        coarse1 = split(db_c1) if db_c1 is not None else coarse
+        self._set_shards([Shard(*parts) for parts in zip(split(prints), split(lengths),
+                                                          coarse, coarse1)])
         return self
 
     # -- matching --
@@ -442,19 +530,26 @@ class TwoStageDB:
                        ) -> torch.Tensor:
         """Run one batched match of (B, N, 2) int32 queries on self.device
         without a host sync; returns the (B, 3, K) int32 [scores, track
-        index, offsets] tensor."""
+        index, offsets] tensor. Under a mesh, every shard's match is queued
+        (each on its own device, the prefilter capped at the shard's tracks)
+        before the shards' (B, 3, K_s) blocks are gathered along K in shard
+        order."""
         cfg = self.db.cfg
         pool = pool if pool is not None else cfg.fine_candidates
         fw = fine_window if fine_window is not None else self.stride
         ph = phases if phases is not None else self.query_phases
-        pf, p1, c1 = self._twopass_args(ph, prefilter, phases1, self.db_c.shape[0])
-        return _two_stage(queries_dev, self.prints, self.lengths, self.db_c, self.db_c1,
-                          stride=self.stride, pool=pool, fine_window=fw,
-                          lc_true=self.lc_true, kind=self.coarse_kind,
-                          channels=self.coarse_channels, phases=ph, phases1=p1,
-                          prefilter=pf, channels1=c1,
-                          packed1=bool(pf) and self.prefilter_pack4,
-                          pool_rows=self._pool_rows, pool_exact=self._pool_exact)
+        blocks = []
+        for i, sh in enumerate(self.shards):
+            t_shard = sh.db_c.shape[0]
+            pf, p1, c1 = self._twopass_args(ph, prefilter, phases1, t_shard)
+            blocks.append(_two_stage(
+                queries_dev.to(sh.db_c.device), sh.prints, sh.lengths, sh.db_c, sh.db_c1,
+                stride=self.stride, pool=pool, fine_window=fw, lc_true=self.lc_true,
+                kind=self.coarse_kind, channels=self.coarse_channels, phases=ph,
+                phases1=p1, prefilter=pf, channels1=c1,
+                packed1=bool(pf) and self.prefilter_pack4, pool_rows=self._pool_rows,
+                pool_exact=self._pool_exact, base=i * t_shard))
+        return blocks[0] if self.mesh is None else gather_blocks(blocks, self.mesh, dim=2)
 
     def dispatch(self, query_dev: torch.Tensor, **kw) -> torch.Tensor:
         """One query (N, 2) int32: the (3, K) tensor of dispatch_batch."""

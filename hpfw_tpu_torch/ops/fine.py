@@ -10,9 +10,10 @@ the result is the best sim of the band and the first offset reaching it,
 (-1, s) when the whole band is invalid. A track index out of range scores
 as an empty track.
 
-Prints are read from the (T, L, 2) int32 print array. The tight flat word
-planes of the reference's single-device layout (plane_lpad / plane_pad) are
-kept only for the two-stage cache format that both packages read and write.
+Prints are read from the (T, L, 2) int32 print array. The flat word planes
+of the reference's layouts (plane_lpad / plane_pad: tight on one device,
+with headroom a slot under a mesh) are kept only for the two-stage cache
+format that both packages read and write.
 
 On CUDA tensors fine_rescan_batch launches K5 (csrc/fine.cu), which scores
 the band as the TPU kernel does, sim = (corr + 64 * kcut) / 2 with corr the
@@ -30,7 +31,7 @@ from . import _build
 from ..match.matcher import _popcount32
 
 SNAP = 1024          # plane slot alignment of the cache format
-WIDTH = 2048         # words after the last slot of a plane in the cache format
+WIDTH = 2048         # words of a plane's headroom in the cache format
 _MASK32 = 0xFFFFFFFF
 # Elements (queries x candidates x query prints) per block of the plain
 # rescan, which bounds each int64 temporary to some 64 MB.
@@ -134,19 +135,22 @@ def fine_rescan_batch(queries: torch.Tensor, prints: torch.Tensor,
     raise ValueError(f"no fine rescan for device {prints.device}")
 
 
-def plane_lpad(l: int) -> int:
-    """Per-track slot length of the cache's tight word planes: l rounded up
-    to a multiple of 1024."""
-    return -(-l // SNAP) * SNAP
+def plane_lpad(l: int, *, tight: bool = True) -> int:
+    """Per-track slot length of the cache's word planes: l rounded up to a
+    multiple of 1024 (tight), or l + WIDTH rounded up, each slot with its own
+    headroom, as the reference lays out planes sharded over a mesh."""
+    return -(-(l if tight else l + WIDTH) // SNAP) * SNAP
 
 
-def plane_pad(prints: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
-    """(T, L, 2) uint32 packed prints -> the cache's two tight flat word
-    planes, T * Lpad + WIDTH words each, and Lpad."""
+def plane_pad(prints: np.ndarray, *, tight: bool = True
+              ) -> tuple[np.ndarray, np.ndarray, int]:
+    """(T, L, 2) uint32 packed prints -> the cache's two flat word planes and
+    Lpad: T * Lpad + WIDTH words each when tight, T * Lpad otherwise."""
     t, l, _ = prints.shape
-    lpad = plane_lpad(l)
-    d0 = np.zeros(t * lpad + WIDTH, np.uint32)
-    d1 = np.zeros(t * lpad + WIDTH, np.uint32)
+    lpad = plane_lpad(l, tight=tight)
+    tail = WIDTH if tight else 0
+    d0 = np.zeros(t * lpad + tail, np.uint32)
+    d1 = np.zeros(t * lpad + tail, np.uint32)
     d0[: t * lpad].reshape(t, lpad)[:, :l] = prints[:, :, 0]
     d1[: t * lpad].reshape(t, lpad)[:, :l] = prints[:, :, 1]
     return d0, d1, lpad

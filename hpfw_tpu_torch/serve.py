@@ -17,12 +17,16 @@ ranks it on the host.
   - Queries share one length; a wrong length, or a submit after close(),
     fails fast.
 
-On a CUDA device each dispatcher thread owns a torch.cuda.Stream, made
-current for its launches; the stream waits once for the stream that built
-the DB. Each batch uploads from pinned host memory without blocking, and its
-(B, 3, K) result comes back by a non-blocking copy into a fresh pinned buffer
-plus a recorded event, which the rank worker waits on: a dispatcher never
-synchronises, so consecutive batches pipeline on the device. On the CPU the
+On a CUDA device each dispatcher thread owns a torch.cuda.Stream on every
+device the DB's shards sit on (one on one card), made current for its
+launches; each stream waits once for the work that built the DB on its
+device. Each batch uploads from pinned host memory to the first device
+without blocking, every shard's match is queued on its own device's stream,
+the shards' blocks meet on the first device after each shard's stream (the
+copy in the gather waits on it), and the (B, 3, K) result comes back by a
+non-blocking copy into a fresh pinned buffer plus an event recorded on the
+first device's stream, which the rank worker waits on: a dispatcher never
+synchronises, so consecutive batches pipeline on the devices. On the CPU the
 same code runs with no streams.
 """
 
@@ -107,18 +111,28 @@ def _drain(q: queue.Queue) -> None:
             _fail([item[-1]], RuntimeError("server closed"))
 
 
-def _new_stream(device: torch.device):
-    """A dispatcher's stream, ordered after the work queued so far on the
-    current stream (the DB's build); None on the CPU."""
-    if device.type != "cuda":
-        return None
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(torch.cuda.current_stream(device))
-    return stream
+def _new_streams(ts) -> list:
+    """A dispatcher's streams, one a device of ts (its first device first),
+    each ordered after the work queued so far on its device's current stream
+    (the DB's build); [None] on the CPU."""
+    streams = []
+    for device in ts.devices:
+        if device.type != "cuda":
+            return [None]
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        streams.append(stream)
+    return streams
 
 
-def _on(stream):
-    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+@contextlib.contextmanager
+def _on(streams):
+    """Make each stream current on its device."""
+    with contextlib.ExitStack() as stack:
+        for stream in streams:
+            if stream is not None:
+                stack.enter_context(torch.cuda.stream(stream))
+        yield
 
 
 class MatchServer:
@@ -138,7 +152,7 @@ class MatchServer:
         self.pool = pool
         self.submit_timeout = submit_timeout_ms / 1e3
         self.device = ts.device
-        self._stream = _new_stream(self.device)
+        self._streams = _new_streams(ts)
         self._q: queue.Queue = queue.Queue(maxsize=int(max_queue))
         self._stop = threading.Event()
         self._device_slots = threading.Semaphore(self.depth)
@@ -190,7 +204,7 @@ class MatchServer:
         b = 1
         while True:
             rows = [q] * min(b, self.max_batch)
-            with _on(self._stream):
+            with _on(self._streams):
                 out, ready = self._dispatch(rows)
             api._wait(ready)
             if b >= self.max_batch:
@@ -218,10 +232,10 @@ class MatchServer:
         ((B, 3, K) int32 host tensor, event to wait on or None). No sync."""
         host = torch.from_numpy(np.stack(rows).view(np.int32))
         out_dev = self.ts.dispatch_batch(api._upload(host, self.device), pool=self.pool)
-        return api._to_host(out_dev, self._stream)
+        return api._to_host(out_dev, self._streams[0])
 
     def _run(self):
-        with _on(self._stream):
+        with _on(self._streams):
             while not self._stop.is_set():
                 batch = _collect(self._q, self.max_batch, self.max_wait)
                 if not batch:
@@ -284,8 +298,9 @@ class EscalatingMatchServer:
     together, and overrides the rigid answer only under api.scan_overrides.
     Clean traffic never queues behind scans on the host.
 
-    The two dispatchers own one CUDA stream each. A spectrum made on the
-    rigid stream is read on the scan stream after that stream waits for the
+    The two dispatchers own one CUDA stream each on every device of the DB
+    (as MatchServer's). A spectrum made on the rigid stream of the first
+    device is read on the scan stream there after that stream waits for the
     rigid batch's event, and is recorded on the scan stream so that its
     memory outlives the scan's kernels.
 
@@ -343,8 +358,8 @@ class EscalatingMatchServer:
         self.submit_timeout = submit_timeout_ms / 1e3
         self.device = ts.device
         self._filters = api._filters_on(filters, cfg, self.device)
-        self._rigid_stream = _new_stream(self.device)
-        self._scan_stream = _new_stream(self.device)
+        self._rigid_streams = _new_streams(ts)
+        self._scan_streams = _new_streams(ts)
         self._q: queue.Queue = queue.Queue(maxsize=int(max_queue))
         self._scan_q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
@@ -398,7 +413,7 @@ class EscalatingMatchServer:
         request."""
         p = np.asarray(example_pcm, dtype=np.float32)
         spec1 = None
-        with _on(self._rigid_stream):
+        with _on(self._rigid_streams):
             b = 1
             while True:
                 specs, prints = self._extract([p] * min(b, self.max_batch))
@@ -407,7 +422,7 @@ class EscalatingMatchServer:
                 if b >= self.max_batch:
                     break
                 b *= 4
-        with _on(self._scan_stream):
+        with _on(self._scan_streams):
             b = 1
             while True:
                 bb = _bucket(b, self.scan_batch)
@@ -457,7 +472,7 @@ class EscalatingMatchServer:
 
     # ---- the rigid class ------------------------------------------------
     def _run_rigid(self):
-        with _on(self._rigid_stream):
+        with _on(self._rigid_streams):
             while not self._stop.is_set():
                 batch = _collect(self._q, self.max_batch, self.max_wait)
                 if not batch:
@@ -471,7 +486,7 @@ class EscalatingMatchServer:
                 try:
                     specs, prints = self._extract(rows)
                     out, ready = api._to_host(self.ts.dispatch_batch(prints, pool=self.pool),
-                                              self._rigid_stream)
+                                              self._rigid_streams[0])
                 except Exception as e:             # a failed launch fails its batch
                     self._device_slots.release()
                     _fail(futs, e)
@@ -529,7 +544,8 @@ class EscalatingMatchServer:
 
     # ---- the scan class -------------------------------------------------
     def _run_scan(self):
-        with _on(self._scan_stream):
+        scan_stream = self._scan_streams[0]
+        with _on(self._scan_streams):
             while not self._stop.is_set():
                 batch = _collect(self._scan_q, self.scan_batch, self.scan_wait,
                                  first_wait=self.scan_wait)
@@ -542,15 +558,15 @@ class EscalatingMatchServer:
                     _fail(futs, RuntimeError("server closed"))
                     break
                 try:
-                    if self._scan_stream is not None:
+                    if scan_stream is not None:
                         # The spectra come from the rigid stream: wait for
                         # their batch's event, and keep their memory until
                         # the scan stream's work on them has run.
                         for ev in {id(r): r for _, r, _, _ in batch}.values():
-                            self._scan_stream.wait_event(ev)
+                            scan_stream.wait_event(ev)
                         for s in specs:
-                            s.record_stream(self._scan_stream)
-                    out, ready = api._to_host(self._scan(specs), self._scan_stream)
+                            s.record_stream(scan_stream)
+                    out, ready = api._to_host(self._scan(specs), scan_stream)
                 except Exception as e:             # a failed launch fails its batch
                     self._device_slots.release()
                     _fail(futs, e)

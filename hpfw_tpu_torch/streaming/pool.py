@@ -9,7 +9,8 @@ Counterpart of hpfw_tpu/streaming/pool.py. StreamingPool runs up to
   - one TwoStageDB.match_batch per query bucket a tick, padded to capacity
     (streams group by their progressive ring bucket; at steady state every
     stream sits in the top bucket and the pool matches in one coarse sweep);
-    a dense FingerprintDB matches each query alone through api.match;
+    a ShardedDB matches each query alone through its own match, and a
+    dense FingerprintDB through api.match;
 
 while each stream's vote integration, confidence and hypothesis stay those
 of a lone StreamingSession fed the same chunks.
@@ -158,7 +159,10 @@ class StreamingPool:
                 pad = np.broadcast_to(queries[:1], (self.capacity - n,) + queries.shape[1:])
                 queries = np.concatenate([queries, pad])
             return self.db.match_batch(queries, top_k=1)[:n]
-        # A dense FingerprintDB: each query alone, no padding.
+        # A ShardedDB's own match or a dense FingerprintDB's scan: each query
+        # alone, no padding.
+        if hasattr(self.db, "match"):
+            return [self.db.match(q, top_k=1) for q in queries]
         return [api.match(q, self.db, top_k=1) for q in queries]
 
     def latency_stats(self) -> dict:

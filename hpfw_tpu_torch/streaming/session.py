@@ -165,7 +165,7 @@ class StreamingSession:
                  match_every: int = 1, vote_decay: float = 0.8,
                  query_buckets: tuple | None = None, vote_floor: float = 0.55,
                  spec_scan: bool | None = None, lock_margin: float = 0.05):
-        self.db = db                      # FingerprintDB or TwoStageDB
+        self.db = db                      # FingerprintDB, ShardedDB or TwoStageDB
         self.cfg = cfg if cfg is not None else getattr(db, "cfg", None) or db.db.cfg
         scan_axes = self.cfg.stretch_span > 0.0 or self.cfg.pitch_span_bins > 0
         if spec_scan is None:
@@ -229,6 +229,13 @@ class StreamingSession:
         return api._to_numpy_prints(
             api.scan_from_spec(spec, self.extractor._filters, self.cfg, factors))
 
+    def _match(self, q: np.ndarray, k: int):
+        """One rigid match: the DB's own (TwoStageDB, ShardedDB), else the
+        dense scan of a FingerprintDB."""
+        if hasattr(self.db, "match"):
+            return self.db.match(q, top_k=k)
+        return api.match(q, self.db, top_k=k)
+
     def _match_window(self):
         n = max(b for b in self.query_buckets if b <= len(self._ring))
         q = np.array(self._ring, dtype=np.uint32)[-n:]
@@ -247,18 +254,16 @@ class StreamingSession:
                 ids, scores, offs, var = self.db.match(stack, top_k=k, return_variant=True)
                 if len(ids):
                     win_factor = factors[int(var[0])]
-            else:                              # dense: a match a variant, first best wins
+            else:           # dense or ShardedDB: a match a variant, first best wins
                 ids, scores, offs, best = [], [], [], None
                 for f, v in zip(factors, stack):
-                    r = api.match(v, self.db, top_k=k)
+                    r = self._match(v, k)
                     if len(r[0]) and (best is None or r[1][0] > scores[0]):
                         best, (ids, scores, offs) = f, r
                 if best is not None:
                     win_factor = best
-        elif hasattr(self.db, "match"):        # TwoStageDB
-            ids, scores, offs = self.db.match(q, top_k=k)
-        else:                                  # dense FingerprintDB
-            ids, scores, offs = api.match(q, self.db, top_k=k)
+        else:
+            ids, scores, offs = self._match(q, k)
         self.match_latencies_ms.append((time.perf_counter() - t0) * 1e3)
         if self._spec_scan and full and len(ids):
             self._update_lock(scores, n, win_factor if factors else (1.0, 0))

@@ -8,9 +8,11 @@ import pytest
 from hpfw_tpu import api as jax_api
 from hpfw_tpu.artist import ArtistDB as JaxArtistDB
 from hpfw_tpu.io import synth
+from hpfw_tpu.parallel import mesh as jax_meshlib
 from hpfw_tpu_torch import api
 from hpfw_tpu_torch.artist import ArtistDB
 from hpfw_tpu_torch.config import HpfwConfig
+from hpfw_tpu_torch.parallel.mesh import Mesh
 
 
 def _port(cfg):
@@ -136,8 +138,40 @@ def test_match_gives_the_reference_ids_and_offsets(cfg, built, scaled, query):
 
 def test_constructor_checks(cfg, built):
     _, _, port = built
-    with pytest.raises(NotImplementedError, match="A7"):
-        ArtistDB(port.cfg, port.banks, mesh=object(), device="cpu")
     other = HpfwConfig.from_json(port.cfg.to_json().replace('"top_k": 10', '"top_k": 3'))
     with pytest.raises(ValueError, match="config differs"):
         ArtistDB(other, port.banks, device="cpu")
+
+
+@pytest.mark.parametrize("query", range(len(QUERIES)))
+def test_scaled_match_on_mesh(cfg, built, query):
+    """ArtistDB(scaled=True, mesh=): every bank's TwoStageDB sharded over 8
+    logical cpu shards. Over the reference's banks it returns the unsharded
+    scaled banks' answer bit for bit, and the ids and offsets of hpfw_tpu's
+    ArtistDB on mesh8 (its default coarse_tile pads each bank to 8 x 128
+    tracks, the port to 8 x 8; the empty tracks take the same pool slots)."""
+    catalogs, ref, _ = built
+    artist, tid, start, seed = QUERIES[query]
+    owner = artist or "artist2"
+    q = synth.make_query(catalogs[owner][tid], start, 2.0, cfg, noise_db=-15.0, seed=seed)
+    kw = dict(top_k=3 if artist else 5, pool=ref.banks[owner].n_tracks if artist else 4)
+    mesh = Mesh(["cpu"] * 8)
+    port = ArtistDB(_port(cfg), _port_banks(ref, cfg), scaled=True, stride=4, mesh=mesh,
+                    device="cpu")
+    flat = ArtistDB(_port(cfg), _port_banks(ref, cfg), scaled=True, stride=4, device="cpu")
+    jref = JaxArtistDB(cfg, ref.banks, scaled=True, stride=4, mesh=jax_meshlib.db_mesh(8),
+                       use_pallas_fine=True, pallas_interpret=True)
+    got = port.match(q, artist=artist, **kw)
+    want = flat.match(q, artist=artist, **kw)
+    assert list(got[0]) == list(want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    names = [artist] if artist else ref.artists
+    for a in names:
+        assert port.two_stage(a).mesh is mesh and len(port.two_stage(a).shards) == 8
+    jgot = jref.match(q, artist=artist, **kw)
+    assert list(got[0]) == list(jgot[0])
+    np.testing.assert_array_equal(got[2], jgot[2])
+    bits = max(_bits(api.fingerprint(q, ref.banks[a].filters, _port(cfg), device="cpu"),
+                     jax_api.fingerprint(q, ref.banks[a].filters, cfg)) for a in names)
+    assert np.abs(np.asarray(got[1], np.int64) - np.asarray(jgot[1], np.int64)).max() <= bits

@@ -21,6 +21,8 @@ from hpfw_tpu_torch.io import synth
 from hpfw_tpu_torch.learn import pca
 from hpfw_tpu_torch.match import matcher
 from hpfw_tpu_torch.match.scaled import TwoStageDB
+from hpfw_tpu_torch.match.sharded import ShardedDB
+from hpfw_tpu_torch.parallel import mesh as meshlib
 from hpfw_tpu_torch.ops import _build, coarse_scan, fine, frontend, probe
 from hpfw_tpu_torch.ops import fingerprint as fp_ops
 
@@ -815,3 +817,84 @@ def test_build_db_from_files_on_card_equals_build_db(dev, tmp_path):
         a = torch.from_numpy(got.prints[t, :n].view(np.int32))
         b = torch.from_numpy(want.prints[t, :n].view(np.int32))
         assert _bits(a, b) <= max(2, a.numel() * 32 // 10000), t
+
+
+def _same(a, b):
+    assert list(a[0]) == list(b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    np.testing.assert_array_equal(a[2], b[2])
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_sharded_db_on_card_equals_dense(dev, d):
+    """A ShardedDB over d logical shards of the card: api.match's top 10 (K3
+    dense), d K3 launches a match, and each shard's gathered block equal to
+    the same mesh's on the CPU."""
+    cfg = HpfwConfig(**SMALL)
+    rng = np.random.default_rng(8)
+    t, l, n = 45, 300, 60
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    lengths = np.full(t, l, np.int32)
+    lengths[[4, 30]] = [40, 150]
+    db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32),
+                           [str(i) for i in range(t)], prints, lengths, device=dev)
+    sdb = ShardedDB(db, meshlib.Mesh([dev] * d))
+    on_cpu = ShardedDB(db, meshlib.Mesh(["cpu"] * d))
+    for i, o in ((3, 5), (40, 133), (44, 240)):
+        q = prints[i, o:o + n]
+        _build.reset_launch_counts()
+        got = sdb.match(q, top_k=10, top_pool=16)
+        assert _build.LAUNCHES["score_tracks"] == d
+        _same(got, api.match(q, db, top_k=10))
+        assert (got[0][0], int(got[1][0]), int(got[2][0])) == (str(i), 64 * n, o)
+        _same(got, on_cpu.match(q, top_k=10, top_pool=16))
+
+
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("pack4", [False, True])
+def test_sharded_two_stage_on_card_equals_unsharded(dev, d, pack4):
+    """TwoStageDB over d logical shards of the card, catalog_scale() knobs
+    with every track pooled (prefilter and pool >= the tracks): match and
+    match_batch equal the unsharded DB's; the shards' K4 and K5 launch d
+    times the unsharded DB's count; the mesh DB on the CPU gives the same
+    gathered blocks."""
+    cfg = HpfwConfig.catalog_scale(db_downsample=8, coarse_prefilter=64,
+                                   coarse_prefilter_pack4=pack4)
+    rng = np.random.default_rng(9)
+    t, l, n = 61, 400, 96
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32),
+                           [str(i) for i in range(t)], prints, np.full(t, l, np.int32),
+                           device=dev)
+    qs = np.stack([prints[i, o:o + n] for i, o in ((3, 5), (40, 133), (60, 250))])
+    flat = TwoStageDB(db)
+    mesh_db = TwoStageDB(db, mesh=meshlib.Mesh([dev] * d))
+    assert mesh_db.devices == [dev] and len(mesh_db.shards) == d
+    counts = []
+    for ts in (flat, mesh_db):
+        _build.reset_launch_counts()
+        for q in qs:
+            ts.match(q, top_k=10, pool=64)
+        counts.append(dict(_build.LAUNCHES))
+    for k in ("coarse_scan_batch_packed" if pack4 else "coarse_scan_batch", "coarse_rescan",
+              "fine_rescan"):
+        assert counts[1][k] == d * counts[0][k] > 0, k
+    for q in qs:
+        _same(mesh_db.match(q, top_k=10, pool=64), flat.match(q, top_k=10, pool=64))
+    for a, b in zip(mesh_db.match_batch(qs, top_k=10, pool=64),
+                    flat.match_batch(qs, top_k=10, pool=64)):
+        _same(a, b)
+    on_cpu = TwoStageDB(api.FingerprintDB(cfg, db.filters, db.track_ids, prints, db.lengths,
+                                          device="cpu"), mesh=meshlib.Mesh(["cpu"] * d))
+    qd = torch.from_numpy(qs.view(np.int32))
+    assert torch.equal(mesh_db.dispatch_batch(qd.to(dev), pool=64).cpu(),
+                       on_cpu.dispatch_batch(qd, pool=64))
+
+
+def test_db_mesh_past_the_cards_raises(dev):
+    n = torch.cuda.device_count()
+    assert meshlib.db_mesh().devices == tuple(torch.device("cuda", i) for i in range(n))
+    with pytest.raises(ValueError, match=f"requested {n + 1} devices, have {n}"):
+        meshlib.db_mesh(n + 1)
+    with pytest.raises(ValueError, match=f"torch sees {n} CUDA devices"):
+        meshlib.Mesh([torch.device("cuda", n)])

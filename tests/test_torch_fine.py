@@ -107,6 +107,16 @@ def test_plane_pad_identical(l):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("l", [1, 100, 1024, 2579])
+def test_mesh_plane_pad_identical(l):
+    """The planes of a mesh cache: every slot with its own headroom, no tail,
+    as the reference's sharded layout."""
+    p = np.random.default_rng(l).integers(0, 2 ** 32, (3, l, 2), dtype=np.uint32)
+    assert fine.plane_lpad(l, tight=False) == pallas_fine.plane_lpad(l, tight=False)
+    for a, b in zip(fine.plane_pad(p, tight=False), pallas_fine.plane_pad(p, tight=False)):
+        np.testing.assert_array_equal(a, b)
+
+
 GROUP_ROWS = 48      # band offsets K5 scores a pass (three m16 tiles)
 
 

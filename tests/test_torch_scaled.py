@@ -19,10 +19,12 @@ from hpfw_tpu import api as jax_api
 from hpfw_tpu.config import HpfwConfig as JaxConfig
 from hpfw_tpu.match import scaled as jax_scaled
 from hpfw_tpu.match import stretch as jax_stretch
+from hpfw_tpu.parallel import mesh as jax_meshlib
 from hpfw_tpu_torch import api
 from hpfw_tpu_torch.config import HpfwConfig as PortConfig
 from hpfw_tpu_torch.match import scaled, stretch
 from hpfw_tpu_torch.match.scaled import TwoStageDB
+from hpfw_tpu_torch.parallel.mesh import Mesh
 
 SMALL = dict(frame_len=2048, fmin=380.0, n_bins=73, hop=256, context_w=8,
              delta_lag=4, db_downsample=8)
@@ -41,6 +43,8 @@ CONFIGS = {
                                    prefilter_channels=32), dict(pool=8)),
     "catalog_scale": ({}, dict(pool=16)),
     "sum_coarse_channels_32": (dict(coarse_kind="sum", coarse_channels=32), dict(pool=8)),
+    "prefilter_pack4": (dict(query_phases=4, prefilter=16, prefilter_phases=2,
+                             prefilter_pack4=True), dict(pool=8)),
 }
 
 
@@ -283,9 +287,8 @@ def test_reference_xla_cache_pools_real_tracks_only(tmp_path):
         np.zeros((16384, 2), np.uint32)), ValueError, "2\\^24"),
     (lambda db: TwoStageDB(db, prefilter_pack4=True, coarse_kind="sum"), ValueError,
      "nibble"),
-    (lambda db: TwoStageDB(db, mesh=object()), NotImplementedError, "A7"),
 ], ids=["overlong_query", "phases_divide", "prefilter_channels", "sum_bound",
-        "pack4", "mesh"])
+        "pack4"])
 def test_errors(make, exc, match):
     rng = np.random.default_rng(0)
     cfg = PortConfig(**SMALL)
@@ -328,3 +331,161 @@ def test_catalog_scale_knobs_picked_up(data):
     assert p.db_c1 is not p.db_c and p.db.cfg.fine_candidates == 1024
     assert dataclasses.asdict(p.db.cfg) == dataclasses.asdict(j.db.cfg)
     assert jax.default_backend() == "cpu"
+
+
+# -- sharded over a mesh: the port on 8 logical `cpu` shards against hpfw_tpu
+# on its 8-device simulation (tests/conftest.py), both padded to 8 x 8 tracks.
+
+MESH_CONFIGS = ["phases_1", "query_phases_4", "two_pass_prefilter_16",
+                "prefilter_channels_32", "prefilter_pack4"]
+_MESH_BUILT = {}
+
+
+def _mesh_pair(data, name, **extra):
+    """(JAX TwoStageDB on mesh8 at coarse_tile=8, port TwoStageDB on an
+    8-entry cpu mesh, match kwargs), built once per test module."""
+    key = (name, tuple(sorted(extra.items())))
+    if key not in _MESH_BUILT:
+        prints, lengths, _ = data
+        kw, match_kw = CONFIGS[name]
+        kw = dict(kw, **extra)
+        jcfg, pcfg = _cfgs(name)
+        filt = np.zeros((jcfg.context_dim, 64), np.float32)
+        ids = [str(i) for i in range(T)]
+        jdb = jax_api.FingerprintDB(jcfg, filt, ids, prints, lengths)
+        pdb = api.FingerprintDB(pcfg, filt, ids, prints, lengths, device="cpu")
+        j = jax_scaled.TwoStageDB(jdb, stride=STRIDE, mesh=jax_meshlib.db_mesh(8),
+                                  use_pallas_fine=True, coarse_tile=8,
+                                  pallas_interpret=True, **kw)
+        p = TwoStageDB(pdb, stride=STRIDE, mesh=Mesh(["cpu"] * 8), **kw)
+        _MESH_BUILT[key] = (j, p, match_kw)
+    return _MESH_BUILT[key]
+
+
+@pytest.mark.parametrize("surface", ["match", "match_batch"])
+@pytest.mark.parametrize("name", MESH_CONFIGS)
+def test_mesh_two_stage_equals_reference(data, name, surface):
+    j, p, kw = _mesh_pair(data, name)
+    qs = data[2]
+    if surface == "match":
+        for q in qs:
+            _same(p.match(q, top_k=5, **kw), j.match(q, top_k=5, **kw))
+    else:
+        for got, want in zip(p.match_batch(qs, top_k=5, **kw),
+                             j.match_batch(qs, top_k=5, **kw)):
+            _same(got, want)
+
+
+def test_mesh_dispatch_gathers_the_reference_blocks(data):
+    """The gathered (B, 3, 8 x K) candidate blocks themselves, shard by
+    shard, and the derived shards against the reference's sharded arrays."""
+    j, p, kw = _mesh_pair(data, "two_pass_prefilter_16")
+    qs = data[2]
+    got = p.dispatch_batch(torch.from_numpy(qs.view(np.int32)), **kw)
+    want = j.dispatch_batch(jnp.asarray(qs), **kw)
+    assert got.shape == (4, 3, 8 * 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(p.shards) == 8 and p.prints is None and p.devices == [torch.device("cpu")]
+    for field, ref in (("db_c", j.db_c), ("db_c1", j.db_c1), ("lengths", j.lengths)):
+        np.testing.assert_array_equal(
+            torch.cat([getattr(s, field) for s in p.shards]).numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("surface", ["match", "match_batch"])
+def test_mesh_stretch_scan_and_variant_stacks_equal_reference(data, surface):
+    """The print-level tempo scan with calibrate, and a pre-scanned (V, N, 2)
+    stack with return_variant (a (B, V, N, 2) stack for match_batch)."""
+    j, p, _ = _mesh_pair(data, "query_phases_4")
+    qs = data[2]
+    stacks = stretch.print_variants(qs[:2], [0.98, 1.0, 1.02])
+    for calibrate in (False, True):
+        kw = dict(top_k=5, pool=8, stretch_span=0.02, calibrate=calibrate)
+        if surface == "match":
+            _same(p.match(qs[1], return_variant=True, **kw),
+                  j.match(qs[1], return_variant=True, **kw))
+        else:
+            for got, want in zip(p.match_batch(qs[:2], **kw), j.match_batch(qs[:2], **kw)):
+                _same(got, want)
+    if surface == "match":
+        _same(p.match(stacks[0], top_k=5, pool=8, return_variant=True),
+              j.match(stacks[0], top_k=5, pool=8, return_variant=True))
+    else:
+        for got, want in zip(p.match_batch(stacks, top_k=5, pool=8),
+                             j.match_batch(stacks, top_k=5, pool=8)):
+            _same(got, want)
+
+
+def test_mesh_of_one_equals_unsharded(data):
+    """A mesh of one device is the one-device DB, bit for bit."""
+    _, p, kw = _pair(data, "catalog_scale")
+    one = TwoStageDB(p.db, stride=STRIDE, mesh=Mesh(["cpu"]))
+    qs = data[2]
+    for q in qs:
+        _same(one.match(q, top_k=5, **kw), p.match(q, top_k=5, **kw))
+    assert torch.equal(one.dispatch_batch(torch.from_numpy(qs.view(np.int32)), **kw),
+                       p.dispatch_batch(torch.from_numpy(qs.view(np.int32)), **kw))
+
+
+@pytest.mark.parametrize("layout", ["pallas", "fine_only", "xla"])
+def test_reference_mesh_cache_loads(data, tmp_path, layout):
+    """hpfw_tpu's mesh caches at its default coarse_tile (128: 8 shards of 128
+    tracks, 80 of them empty in the first), in each of its layouts, split at
+    their own padded length: the port answers as the reference does."""
+    prints, lengths, qs = data
+    name = {"pallas": "prefilter_channels_32", "fine_only": "query_phases_4",
+            "xla": "phases_1"}[layout]
+    kw = CONFIGS[name][0]
+    jcfg, _ = _cfgs(name)
+    jdb = jax_api.FingerprintDB(jcfg, np.zeros((jcfg.context_dim, 64), np.float32),
+                                [str(i) for i in range(T)], prints, lengths)
+    j = jax_scaled.TwoStageDB(jdb, stride=STRIDE, mesh=jax_meshlib.db_mesh(8),
+                              use_pallas_fine=layout != "xla",
+                              use_pallas_coarse=layout == "pallas", pallas_interpret=True,
+                              **kw)
+    path = str(tmp_path / "cache")
+    j.save(path)
+    p = TwoStageDB.load(path, mesh=Mesh(["cpu"] * 8))
+    t_shard = 128 if layout == "pallas" else 6
+    assert [s.db_c.shape[0] for s in p.shards] == [t_shard] * 8 and p.n_real == T
+    mkw = dict(top_k=5, pool=8, phases=j.query_phases)
+    if layout == "pallas":
+        mkw.update(prefilter=j.prefilter, phases1=j.prefilter_phases)
+    want = [j.match(q, **mkw) for q in qs]
+    for q, w in zip(qs, want):
+        _same(p.match(q, **mkw), w)
+    if layout != "xla":
+        want = j.match_batch(qs, **mkw)
+    for got, w in zip(p.match_batch(qs, **mkw), want):
+        _same(got, w)
+
+
+def test_port_mesh_cache_loads_in_reference(data, tmp_path):
+    _, p, kw = _mesh_pair(data, "prefilter_pack4")
+    kw = dict(kw, phases=p.query_phases, prefilter=p.prefilter, phases1=p.prefilter_phases)
+    path = str(tmp_path / "cache")
+    p.save(path)
+    other = jax_scaled.TwoStageDB.load(path, mesh=jax_meshlib.db_mesh(8),
+                                       pallas_interpret=True)
+    back = TwoStageDB.load(path, mesh=Mesh(["cpu"] * 8))
+    for q in data[2]:
+        want = p.match(q, top_k=5, **kw)
+        _same(other.match(q, top_k=5, **kw), want)
+        _same(back.match(q, top_k=5, **kw), want)
+    for got, want in zip(other.match_batch(data[2], top_k=5, **kw),
+                         p.match_batch(data[2], top_k=5, **kw)):
+        _same(got, want)
+
+
+def test_mesh_size_mismatch_raises_in_both(data, tmp_path):
+    _, p, _ = _mesh_pair(data, "phases_1")
+    _, single, _ = _pair(data, "phases_1")
+    p.save(str(tmp_path / "mesh8"))
+    single.save(str(tmp_path / "single"))
+    cases = [("mesh8", Mesh(["cpu"] * 4), jax_meshlib.db_mesh(4)), ("mesh8", None, None),
+             ("single", Mesh(["cpu"] * 8), jax_meshlib.db_mesh(8))]
+    for cache, pmesh, jmesh in cases:
+        path = str(tmp_path / cache)
+        with pytest.raises(ValueError, match="cache was built for mesh size"):
+            TwoStageDB.load(path, mesh=pmesh, device="cpu")
+        with pytest.raises(ValueError, match="cache was built for mesh size"):
+            jax_scaled.TwoStageDB.load(path, mesh=jmesh, pallas_interpret=True)

@@ -21,10 +21,12 @@ from hpfw_tpu import oracle
 from hpfw_tpu import serve as jax_serve
 from hpfw_tpu.io import synth, synth_jax
 from hpfw_tpu.match import scaled as jax_scaled
+from hpfw_tpu.parallel import mesh as jax_meshlib
 from hpfw_tpu_torch import EscalatingMatchServer, MatchServer, ServerSaturated, api
 from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.match.scaled import TwoStageDB
 from hpfw_tpu_torch.ops import fine
+from hpfw_tpu_torch.parallel.mesh import Mesh
 from tests.test_tpu_pipeline import assert_bits_match_with_margin_audit
 
 
@@ -171,6 +173,25 @@ def test_concurrent_submitters_lose_no_future(served):
 
 
 # ---- EscalatingMatchServer against hpfw_tpu's, on the same PCM ----
+
+def test_server_on_mesh(served):
+    """tests/test_serve.py:87: MatchServer over a TwoStageDB sharded over 8
+    logical cpu shards answers as its match and as hpfw_tpu's DB on mesh8
+    (coarse_tile=8), for queries submitted together and alone."""
+    ref, ts, queries = served
+    jts = jax_scaled.TwoStageDB(ref.db, stride=4, mesh=jax_meshlib.db_mesh(8),
+                                use_pallas_fine=True, coarse_tile=8, pallas_interpret=True)
+    pts = TwoStageDB(ts.db, stride=4, mesh=Mesh(["cpu"] * 8))
+    with MatchServer(pts, queries[0].shape[0], max_batch=4, max_wait_ms=10.0,
+                     pool=16) as srv:
+        got = [f.result(timeout=120) for f in [srv.submit(q) for q in queries]]
+        alone = srv.match(queries[2])
+    for k, (q, res) in enumerate(zip(queries, got)):
+        _same(res, jts.match(q, pool=16))
+        _same(res, pts.match(q, pool=16))
+        assert res[0][0] == str(k + 4)
+    _same(alone, got[2])
+
 
 @pytest.fixture(scope="module")
 def escalating(cfg):
@@ -363,3 +384,24 @@ def test_escalating_server_sheds_load(escalating):
     assert served_n > 0
     assert stats["confident"] + stats["structure_kept"] + stats["escalated"] == stats[
         "submitted"]
+
+
+def test_escalating_server_on_mesh(escalating):
+    """EscalatingMatchServer over the TwoStageDB sharded over 2 logical cpu
+    shards: the answers, flags and rungs of match_scan_escalating over the
+    same sharded DB. (No warmup: its 70-row scan bucket would dispatch to
+    every shard for nothing.)"""
+    cfg2, filters, _, ts, pcms, _ = escalating
+    mts = TwoStageDB(ts.db, stride=4, mesh=Mesh(["cpu"] * 2))
+    with EscalatingMatchServer(mts, filters, pcms.shape[1], max_batch=4, max_wait_ms=20.0,
+                               scan_batch=3, pool=16, top_k=2) as srv:
+        got = [f.result(timeout=600) for f in [srv.submit(p) for p in pcms]]
+        stats = dict(srv.stats)
+    st: dict = {}
+    direct = api.match_scan_escalating(pcms, filters, mts, _port(cfg2), top_k=2, pool=16,
+                                       stats=st)
+    for (g_ids, g_s, g_o, _), want in zip(got, direct):
+        _same((g_ids, g_s, g_o), want)
+    assert [i for i, r in enumerate(got) if r[3]] == st["escalated"]
+    assert stats["escalated"] == len(st["escalated"]) and stats["submitted"] == len(pcms)
+    assert [r[0][0] for r in got] == ["3", "9", "5"]

@@ -19,11 +19,15 @@ from hpfw_tpu import api as jax_api
 from hpfw_tpu import oracle
 from hpfw_tpu.io import synth, synth_jax
 from hpfw_tpu.match import scaled as jax_scaled
+from hpfw_tpu.match import sharded as jax_sharded
+from hpfw_tpu.parallel import mesh as jax_meshlib
 from hpfw_tpu.streaming import pool as jax_pool
 from hpfw_tpu.streaming import session as jax_session
 from hpfw_tpu_torch import ChunkedExtractor, StreamingPool, StreamingSession, api
 from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.match.scaled import TwoStageDB
+from hpfw_tpu_torch.match.sharded import ShardedDB
+from hpfw_tpu_torch.parallel.mesh import Mesh
 from hpfw_tpu_torch.streaming.session import extract_chunked
 from tests.test_tpu_pipeline import assert_bits_match_with_margin_audit
 
@@ -491,3 +495,67 @@ def test_pool_lifecycle_and_unknown_ids(cfg, catalog):
     with pytest.raises(ValueError, match="query_buckets"):
         StreamingPool(dbs["dense"][1], filters, _port(cfg), query_prints=64,
                       query_buckets=(128,))
+
+
+# -- over a ShardedDB: the port's on an 8-entry cpu mesh, hpfw_tpu's on mesh8.
+
+def test_spec_scan_session_over_sharded_db_equals_dense(cfg, scan_catalog):
+    """A +0.5 semitone, 3%-fast rendition: the session over a ShardedDB of
+    the dense DB (a sharded match a hypothesis) gives the hypotheses, top
+    hits and lock states of the session over the dense DB, feed by feed."""
+    filters, dbs = scan_catalog
+    c, by_kind = dbs["tempo_pitch"]
+    pdb = by_kind["dense"][1]
+    kw = dict(query_prints=128, chunk_prints=16)
+    dense = StreamingSession(pdb, filters, _port(c), **kw)
+    sharded = StreamingSession(ShardedDB(pdb, Mesh(["cpu"] * 8)), filters, _port(c), **kw)
+    live = _live(c, 4, 5.0, stretch=1.03, pitch_st=0.5)
+    for pos in range(0, len(live), c.sample_rate // 4):
+        _equal_hyp(sharded.feed(live[pos:pos + c.sample_rate // 4]),
+                   dense.feed(live[pos:pos + c.sample_rate // 4]))
+        assert sharded.last_match == dense.last_match
+        assert _session_state(sharded) == _session_state(dense)
+    assert sharded.current_best.track_id == "4" and sharded._scan_state == "track"
+    assert sharded.pitch == 1
+
+
+def test_spec_scan_sharded_db_equals_reference(cfg):
+    """tests/test_streaming.py:258: a 3%-fast stream over a mesh-sharded dense
+    DB locks the right track, feed by feed as hpfw_tpu's session on mesh8."""
+    c = dataclasses.replace(cfg, stretch_span=0.03)
+    tracks = [np.asarray(t) for t in synth_jax.synth_batch(np.arange(8), 6.0, c)]
+    filters = _filters(c)
+    jdb = jax_api.build_db(tracks, filters, c)
+    pdb = api.FingerprintDB(_port(c), filters, jdb.track_ids, jdb.prints, jdb.lengths,
+                            device="cpu")
+    live = np.asarray(synth_jax.live_query_batch(
+        [5], [int(0.3 * c.sample_rate)], 6.0, 4.0, c, stretch=1.03, noise_db=-20.0))[0]
+    ours, ref = _sessions(ShardedDB(pdb, Mesh(["cpu"] * 8)),
+                          jax_sharded.ShardedDB(jdb, jax_meshlib.db_mesh(8)), filters, c,
+                          query_prints=64)
+    _run_sessions(ours, ref, live, c.sample_rate // 4)
+    assert ours.current_best.track_id == "5"
+    assert ours._scan_state == "track" and abs(ours.tempo - 1.03) < 0.015
+
+
+def test_pool_over_sharded_db_equals_dense(cfg, catalog):
+    """Three streams over a ShardedDB (each query alone through its match)
+    give the hypotheses of the same pool over the dense DB, feed by feed."""
+    tracks, filters, dbs = catalog
+    pdb = dbs["dense"][1]
+    kw = dict(capacity=3, query_prints=64, chunk_prints=16)
+    dense = StreamingPool(pdb, filters, _port(cfg), **kw)
+    sharded = StreamingPool(ShardedDB(pdb, Mesh(["cpu"] * 8)), filters, _port(cfg), **kw)
+    rng = np.random.default_rng(2)
+    feeds = {sid: _chunks(_noisy(tracks, cfg, rng, t), 4096)
+             for sid, t in {"a": 0, "b": 2, "c": 5}.items()}
+    for sid in feeds:
+        dense.add_stream(sid)
+        sharded.add_stream(sid)
+    for i in range(min(len(f) for f in feeds.values())):
+        chunks = {sid: f[i] for sid, f in feeds.items()}
+        got, want = sharded.feed(chunks), dense.feed(chunks)
+        assert list(got) == list(want)
+        for sid in got:
+            _equal_hyp(got[sid], want[sid])
+    assert [got[sid].track_id for sid in "abc"] == ["0", "2", "5"]
