@@ -126,8 +126,33 @@ then the track-sharded matchers, on a mesh of the one card (db_mesh(1), D =
  30. ArtistDB(scaled=True, mesh=) over phase 20's banks at D = 4: every
      known- and unknown-artist match equals the unsharded scaled banks',
      with 4 times their K4/K5 launches, and the K4/K5 calls of one match
-     equal to their plain versions.
-Each path (phases 4, 10, 14-30) runs with the launch counters set to 0 just
+     equal to their plain versions;
+then the port's remaining surfaces at the default config:
+ 31. the CLI (hpfw_tpu_torch/cli.py): `demo` (10 x 8 s) as a subprocess
+     exits 0 with OK; `artist-demo` and `selfcheck` in-process; over phase
+     23's 64 WAV files (written again): `learn` on 12, `build-db` of all 64
+     equal to api.build_db_from_files, `fingerprint` on the card against
+     `--cpu` (the native C++ extraction) within selfcheck's 1e-4 of the
+     bits, 8 noisy 10 s queries at -12 dB through `match --db`,
+     `match --scaled` and `build-cache` + `match --cache` of the same files
+     under catalog_scale(): each ranks its file first and prints the API's
+     top 5 (ids, scores, offsets); `stream` of one file ends on it, `pool`
+     of 8 identifies each, `build-artist-db` of 4 x 8 x 30 s artist tracks
+     and `match-artist` with and without --artist rank the track first;
+     K1-K5 launched, one `match --scaled`'s K4/K5 equal to their plain
+     versions; each subcommand's host seconds;
+ 32. utils.profiling around 5 catalog_scale() TwoStageDB.match calls of
+     phase 10's DB: trace.json holds the 5 `match` scopes and K4's and K5's
+     kernels; scope_stats and the card's busy share inside each scope (the
+     union of kernel intervals over the scope's length);
+ 33. io/synth_device.py: 2,048 x 60 s tracks rendered on the card in
+     batches of 64, each batch fingerprinted there and only the prints
+     kept, a FingerprintDB of them; 20 query_batch excerpts (10 s, -12 dB)
+     rank their tracks first; each cover in the first 100 tracks scores its
+     source above every unrelated track; 8 x 6 s rendered on the card
+     against the same call on the CPU within the CPU tests' tolerance;
+     tracks rendered a second.
+Each path (phases 4, 10, 14-33) runs with the launch counters set to 0 just
 before it and read just after; comparison and timing launches are not
 counted, and a plain-version run checks that K1 and K2 did not launch. Kernel times are CUDA events over launches queued behind a
 spin kernel (cuda_ms). The last two lines are a JSON object of per-kernel
@@ -214,7 +239,7 @@ def nbytes(*tensors) -> int:
 
 
 # Launch counts of every kernel summed over the main-path runs (phases 4, 10,
-# 14-30), each read right after its run.
+# 14-33), each read right after its run.
 PATH_LAUNCHES: Counter = Counter()
 
 
@@ -234,7 +259,7 @@ def end_path() -> dict:
 
 
 def random_filters(cfg) -> np.ndarray:
-    from hpfw_tpu_torch.filters import fix_eigenvector_signs
+    from hpfw_tpu_torch.oracle import fix_eigenvector_signs
     rng = np.random.default_rng(0)
     return fix_eigenvector_signs(
         rng.standard_normal((cfg.context_dim, cfg.n_filters)) / np.sqrt(cfg.context_dim)
@@ -973,6 +998,10 @@ def run_catalog(dev: torch.device, dense: dict) -> list[dict]:
     torch.cuda.empty_cache()
     run_mesh_session(dev, dense, live_dense)
     run_mesh_artists(dev, *artists)
+    # Phases 31-33: the CLI, the profiler and the device catalog synthesizer.
+    run_cli(dev)
+    run_profiler(ts, qs_np)
+    run_synth_device(dev, filters_np)
     source = {"fine_rescan": "fine.cu", "row_sum": "probe.cu"}
     replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
                 "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
@@ -1906,6 +1935,28 @@ def run_escalating_server(ts, filters_np, pcms, truths) -> None:
                     f"(every served answer == the query's answer alone); launches {counts}")
 
 
+def write_ingest_wavs(directory) -> list[str]:
+    """Phase 23's files: INGEST_FILES synthetic tracks of INGEST_SECONDS saved
+    as INGEST_RATE stereo WAV (the right channel 0.6 x the left) in directory."""
+    from pathlib import Path
+
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.io import synth, wav
+
+    cfg = HpfwConfig()
+    Path(directory).mkdir(parents=True, exist_ok=True)
+    paths = [str(Path(directory) / f"track{k:02d}.wav") for k in range(INGEST_FILES)]
+
+    def write(k):
+        left = wav.resample(synth.synth_track(INGEST_SEED + k, INGEST_SECONDS, cfg),
+                            cfg.sample_rate, INGEST_RATE)
+        wav.save_wav(paths[k], np.stack([left, 0.6 * left], axis=1), INGEST_RATE)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(INGEST_FILES)))
+    return paths
+
+
 def run_ingest(dev: torch.device, dense: dict) -> None:
     """Phase 23: api.build_db_from_files over 64 synthetic 30 s tracks saved
     as 44.1 kHz stereo WAV (downmix and sinc resampling run), against
@@ -1915,7 +1966,7 @@ def run_ingest(dev: torch.device, dense: dict) -> None:
 
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
-    from hpfw_tpu_torch.io import ingest, native, synth, wav
+    from hpfw_tpu_torch.io import ingest, native, synth
 
     cfg = HpfwConfig()
     filters_np = dense["filters"]
@@ -1927,15 +1978,7 @@ def run_ingest(dev: torch.device, dense: dict) -> None:
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as d:
         t0 = time.perf_counter()
-        paths = [str(Path(d) / f"track{k:02d}.wav") for k in range(INGEST_FILES)]
-
-        def write(k):
-            left = wav.resample(synth.synth_track(INGEST_SEED + k, INGEST_SECONDS, cfg),
-                                cfg.sample_rate, INGEST_RATE)
-            wav.save_wav(paths[k], np.stack([left, 0.6 * left], axis=1), INGEST_RATE)
-
-        with ThreadPoolExecutor(8) as pool:
-            list(pool.map(write, range(INGEST_FILES)))
+        paths = write_ingest_wavs(d)
         write_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         pcms = ingest.load_files(paths, cfg)
@@ -2329,6 +2372,346 @@ def run_mesh_artists(dev: torch.device, adb, scaled, queries) -> None:
         f"{counts} (unsharded {flat}); an unknown-artist match's K4 and K5 == their plain "
         f"versions on every call")
 
+
+# ---- phases 31-33: the CLI, the profiler and the device catalog synthesizer ----
+
+CLI_LEARN_FILES, CLI_QUERIES, CLI_QUERY_SECONDS, CLI_POOL = 12, 8, 10.0, 8
+CLI_ARTISTS, CLI_ARTIST_TRACKS = 4, 8
+PROFILE_MATCHES = 5
+SYNTH_TRACKS, SYNTH_SECONDS, SYNTH_BATCH, SYNTH_QUERIES = 2048, 60.0, 64, 20
+SYNTH_COVER_SCOPE = 100
+# tests/test_torch_synth_device.py's tolerance for a rendering against
+# another (max |diff|, relative RMS), at its length of 6 s.
+SYNTH_TOL, SYNTH_CHECK_SECONDS = (1e-2, 3e-3), 6.0
+
+
+def cli_run(argv: list, times: dict, key: str | None = None) -> str:
+    """hpfw_tpu_torch.cli.main(argv) in this process on the card: its
+    standard output; fails unless it exits 0. Adds its host seconds to
+    times[key or argv[0]]."""
+    import io
+
+    from hpfw_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    times[key or argv[0]] = times.get(key or argv[0], 0.0) + time.perf_counter() - t0
+    check(rc == 0, f"cli {' '.join(argv[:2])}: exit code {rc}\n{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def ranked_lines(out: str) -> list[tuple[str, int, int]]:
+    """(id, score, offset) of each '#k id  score=S ... offset=O' line."""
+    import re
+    rows = []
+    for ln in out.splitlines():
+        m = re.match(r"#\d+ (\S+)  score=(\d+).*  offset=(\d+)", ln)
+        if m:
+            rows.append((m[1], int(m[2]), int(m[3])))
+    return rows
+
+
+def same_top(rows: list, ids, scores, offs) -> bool:
+    return rows == [(str(i), int(s), int(o)) for i, s, o in zip(ids, scores, offs)]
+
+
+def run_cli(dev: torch.device) -> None:
+    """Phase 31: the CLI on the card at the default HpfwConfig()."""
+    import tempfile
+    from pathlib import Path
+
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.artist import ArtistDB
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.io import ingest, synth, wav
+    from hpfw_tpu_torch.match.scaled import TwoStageDB
+
+    cfg = HpfwConfig()
+    times: dict = {}
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    demo = subprocess.run([sys.executable, "-m", "hpfw_tpu_torch.cli", "demo"], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    times["demo (subprocess)"] = time.perf_counter() - t0
+    check(demo.returncode == 0 and demo.stdout.rstrip().endswith("(OK)"),
+          f"cli demo: exit code {demo.returncode}\n{demo.stdout}\n{demo.stderr[-2000:]}")
+    build_dir = root / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        d = Path(tmp)
+        paths = write_ingest_wavs(d / "files")
+        pcms = ingest.load_files(paths, cfg)
+        rng = np.random.default_rng(31)
+        query_of = {}
+        for k, f in enumerate(rng.choice(INGEST_FILES, CLI_QUERIES, replace=False)):
+            start = float(rng.uniform(1.0, INGEST_SECONDS - CLI_QUERY_SECONDS - 1.0))
+            q = synth.make_query(pcms[f], start, CLI_QUERY_SECONDS, cfg, noise_db=-12.0,
+                                 seed=310 + k)
+            query_of[str(d / f"q{k}.wav")] = paths[f]
+            wav.save_wav(str(d / f"q{k}.wav"), q, cfg.sample_rate)
+        adirs = []
+        for a in range(CLI_ARTISTS):
+            adirs.append(d / f"artist{a}")
+            adirs[-1].mkdir()
+        def write_artist_track(ai):
+            a, i = ai
+            pcm = synth.synth_artist_track(a, i, INGEST_SECONDS, cfg)
+            wav.save_wav(str(adirs[a] / f"t{i}.wav"), pcm, cfg.sample_rate)
+            return ai, pcm
+
+        with ThreadPoolExecutor(8) as pool:
+            art = dict(pool.map(write_artist_track,
+                                [(a, i) for a in range(CLI_ARTISTS)
+                                 for i in range(CLI_ARTIST_TRACKS)]))
+        aq, ta, tt = str(d / "artist_q.wav"), CLI_ARTISTS // 2, CLI_ARTIST_TRACKS - 3
+        a_truth, known = f"artist{ta}/t{tt}", f"artist{ta}"
+        wav.save_wav(aq, synth.make_query(art[(ta, tt)], 4.0, ARTIST_QUERY_SECONDS, cfg,
+                                          noise_db=-12.0, seed=311), cfg.sample_rate)
+        setup_s = time.perf_counter() - t0 - times["demo (subprocess)"]
+
+        start_path()
+        out = cli_run(["artist-demo"], times)
+        check(out.rstrip().endswith("OK"), f"cli artist-demo:\n{out}")
+        sc = json.loads(cli_run(["selfcheck"], times))
+        check(sc["backend"] == "cuda", f"cli selfcheck: {sc}")
+        filters_npz, db_npz, cache = str(d / "filters.npz"), str(d / "db.npz"), str(d / "cache")
+        db_cs_npz, cs_json = str(d / "db_cs.npz"), d / "catalog_scale.json"
+        cs_json.write_text(HpfwConfig.catalog_scale().to_json())
+        cli_run(["learn", *paths[:CLI_LEARN_FILES], "-o", filters_npz], times)
+        cli_run(["build-db", *paths, "--filters", filters_npz, "-o", db_npz], times)
+        # The same files under catalog_scale() (the same widths, the catalog
+        # matcher's knobs) for the cache: 8 phases, a 2-lane 32-channel pass 1.
+        cli_run(["build-db", *paths, "--filters", filters_npz, "-o", db_cs_npz,
+                 "--config", str(cs_json)], times, "build-db --config catalog_scale")
+        filters = np.load(filters_npz)["filters"]
+        want = api.build_db_from_files(paths, filters, cfg, batch=8, device=dev)
+        got = np.load(db_npz)
+        check(list(got["track_ids"]) == want.track_ids
+              and np.array_equal(got["lengths"], want.lengths)
+              and np.array_equal(got["prints"], want.prints),
+              "cli build-db: db.npz differs from api.build_db_from_files")
+        one = paths[INGEST_QUERY]
+        cli_run(["fingerprint", one, "--filters", filters_npz, "-o", str(d / "fp.npz")], times)
+        cli_run(["fingerprint", one, "--filters", filters_npz, "--cpu",
+                 "-o", str(d / "fp_cpu.npz")], times, "fingerprint --cpu")
+        fp, fp_cpu = np.load(d / "fp.npz")["prints"], np.load(d / "fp_cpu.npz")["prints"]
+        fp_bits = int(np.bitwise_count(fp ^ fp_cpu).sum())
+        check(fp.shape == fp_cpu.shape and fp_bits <= fp.size * 32 * 1e-4,
+              f"cli fingerprint: {fp_bits} of {fp.size * 32} bits differ from --cpu")
+        cli_run(["build-cache", "--db", db_cs_npz, "-o", cache, "--prefilter-channels", "32"],
+                times)
+        db = api.FingerprintDB.load(db_npz, device=dev)
+        ts_scaled = TwoStageDB(db)
+        ts_cache = TwoStageDB.load(cache, device=dev)
+        held: dict = {}
+        for k, (qp, truth) in enumerate(query_of.items()):
+            qfp = api.fingerprint(wav.load_wav(qp, cfg)[0], filters, cfg, device=dev)
+            runs = [(["match", qp, "--db", db_npz], api.match(qfp, db, top_k=5)),
+                    (["match", qp, "--db", db_npz, "--scaled"],
+                     ts_scaled.match(qfp, top_k=5)),
+                    (["match", qp, "--cache", cache], ts_cache.match(qfp, top_k=5))]
+            for argv, answer in runs:
+                key = " ".join(a for a in argv if a.startswith("--") and a != "--db")
+                if k == 0 and "--scaled" in argv:
+                    with matcher_held_to_plain(held):
+                        rows = ranked_lines(cli_run(argv, times, "match " + key))
+                else:
+                    rows = ranked_lines(cli_run(argv, times, "match " + key))
+                check(rows and rows[0][0] == truth and same_top(rows, *answer),
+                      f"cli {' '.join(argv[:1] + argv[2:])} on {Path(qp).name}: {rows[:2]} "
+                      f"vs the API's {answer[0][:2]}, truth {truth}")
+        check(set(held) == {"coarse_scan", "fine_rescan"},
+              f"cli match --scaled: K4/K5 calls held to their plain versions {held}")
+        out = cli_run(["stream", paths[INGEST_QUERY], "--db", db_npz], times)
+        check(f"final: {paths[INGEST_QUERY]} " in out, f"cli stream:\n{out}")
+        out = cli_run(["pool", *paths[:CLI_POOL], "--db", db_npz], times)
+        check(all(f"{p}: {p} " in out for p in paths[:CLI_POOL]), f"cli pool:\n{out}")
+        adb_npz = str(d / "adb.npz")
+        cli_run(["build-artist-db", *map(str, adirs), "-o", adb_npz], times)
+        adb = ArtistDB.load(adb_npz, device=dev)
+        apcm = wav.load_wav(aq, cfg)[0]
+        for extra, answer in [([], adb.match(apcm, top_k=5)),
+                              (["--artist", known], adb.match(apcm, artist=known, top_k=5))]:
+            rows = ranked_lines(cli_run(["match-artist", aq, "--db", adb_npz, *extra], times,
+                                        "match-artist " + " ".join(extra)))
+            labels = ([f"{a}/{t}" for a, t in answer[0]] if not extra
+                      else [f"{known}/{t}" for t in answer[0]])
+            check(rows and rows[0][0] == a_truth
+                  and rows == [(lb, int(s), int(o))
+                               for lb, s, o in zip(labels, answer[1], answer[2])],
+                  f"cli match-artist {extra}: {rows[:2]}, want {a_truth} first as the API")
+        counts = end_path()
+    for k in ("cqt", "fingerprint", "score_tracks", "coarse_scan", "coarse_scan_batch",
+              "coarse_rescan", "fine_rescan"):
+        check(counts.get(k, 0) > 0, f"phase 31: {k} never launched: {counts}")
+    log(f"phase 31 cli: demo (10 x 8 s, a subprocess) OK; artist-demo OK; selfcheck "
+        f"{sc['differing_bits']}/{sc['total_bits']} bits on {sc['backend']}; over "
+        f"{INGEST_FILES} x {INGEST_SECONDS:.0f} s WAVs: build-db == build_db_from_files; "
+        f"fingerprint vs --cpu {fp_bits}/{fp.size * 32} bits; {CLI_QUERIES} noisy 10 s "
+        f"queries first through match --db, --scaled and --cache (a catalog_scale() "
+        f"DB's cache: 8 phases, 32-channel pass 1), each top 5 == the "
+        f"API's; one --scaled match's K4/K5 == plain {held}; stream and pool of "
+        f"{CLI_POOL} identified; match-artist known and unknown first; setup "
+        f"{setup_s:.1f} s, whole phase {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{counts}")
+    log("phase 31 cli host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+
+
+def kernel_intervals(events: list) -> list[tuple[float, float]]:
+    return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "kernel")
+
+
+def busy_share(intervals: list, lo: float, hi: float) -> float:
+    """The union of the intervals clipped to [lo, hi], over hi - lo."""
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for a, b in intervals:
+        a, b = max(a, lo), min(b, hi)
+        if b <= a:
+            continue
+        if cur_hi is None or a > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    return busy / (hi - lo)
+
+
+def run_profiler(ts, qs_np) -> None:
+    """Phase 32: utils.profiling around PROFILE_MATCHES catalog_scale()
+    TwoStageDB.match calls of phase 10's DB: trace.json holds the match
+    scopes and K4's and K5's kernels; the device's busy share inside each
+    scope (the union of kernel intervals over the scope's length)."""
+    import tempfile
+    from pathlib import Path
+
+    from hpfw_tpu_torch.utils import profiling
+    ts.match(qs_np[0])
+    torch.cuda.synchronize()
+    profiling.reset_scopes()
+    build_dir = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build_dir) as d:
+        start_path()
+        profiling.start_trace(d)
+        for q in qs_np[:PROFILE_MATCHES]:
+            with profiling.trace("match"):
+                ts.match(q)
+        profiling.stop_trace()
+        counts = end_path()
+        trace_path = Path(d) / "trace.json"
+        size_mb = trace_path.stat().st_size / 1e6
+        doc = json.loads(trace_path.read_text())
+    events = doc["traceEvents"] if isinstance(doc, dict) else doc
+    scopes = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("name") == "match" and e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation")
+    check(len(scopes) == PROFILE_MATCHES, f"trace.json: {len(scopes)} match scopes")
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    names = Counter(e["name"].replace("void ", "").replace("(anonymous namespace)::", "")
+                    .split("(")[0] for e in kernels)
+    for want in ("coarse_kernel", "fine_kernel"):
+        check(sum(c for n, c in names.items() if want in n) >= PROFILE_MATCHES,
+              f"trace.json: fewer than {PROFILE_MATCHES} {want} events among {names}")
+    check(all(counts.get(k) == PROFILE_MATCHES
+              for k in ("coarse_scan_batch", "coarse_rescan", "fine_rescan")),
+          f"phase 32 launches {counts}")
+    ivals = kernel_intervals(events)
+    shares = [busy_share(ivals, lo, hi) for lo, hi in scopes]
+    stats = profiling.scope_stats()["match"]
+    log(f"phase 32 profiler: {PROFILE_MATCHES} catalog_scale() matches traced "
+        f"({size_mb:.1f} MB trace.json, {len(kernels)} kernel events, "
+        f"{len(kernels) / PROFILE_MATCHES:.0f} a match); scope_stats {stats}; device busy "
+        f"share inside each match scope {', '.join(f'{x:.3f}' for x in shares)} (mean "
+        f"{statistics.mean(shares):.3f}); K4/K5 kernels "
+        f"{ {n: c for n, c in names.items() if 'coarse_k' in n or 'fine_k' in n} }; launches "
+        f"{counts}")
+
+
+def run_synth_device(dev: torch.device, filters_np: np.ndarray) -> None:
+    """Phase 33: io/synth_device.py at catalog scale: SYNTH_TRACKS x 60 s
+    rendered on the card in batches of SYNTH_BATCH, each batch fingerprinted
+    on the card and only the prints kept; a FingerprintDB of them; noisy
+    10 s query_batch excerpts ranked first; each cover in the first
+    SYNTH_COVER_SCOPE tracks scoring its source above every unrelated
+    track; a batch rendered on the card against the same call on the CPU."""
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.filters import filters_from_jax
+    from hpfw_tpu_torch.io import synth_device as sd
+
+    cfg = HpfwConfig()
+    filt = filters_from_jax(filters_np, cfg, dev)
+    t_phase = time.perf_counter()
+    prints, render_s = [], 0.0
+    start_path()
+    for b0 in range(0, SYNTH_TRACKS, SYNTH_BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pcm = sd.synth_batch(np.arange(b0, b0 + SYNTH_BATCH), SYNTH_SECONDS, cfg, device=dev)
+        torch.cuda.synchronize()
+        render_s += time.perf_counter() - t0
+        check(pcm.device == dev and pcm.shape == (SYNTH_BATCH, int(SYNTH_SECONDS * cfg.sample_rate)),
+              f"synth_batch: {tuple(pcm.shape)} on {pcm.device}")
+        prints.append(api.fingerprint_batch_device(pcm, filt, cfg).cpu())
+        del pcm
+    counts = end_path()
+    build_s = time.perf_counter() - t_phase
+    allp = torch.cat(prints).numpy().view(np.uint32)
+    ids = [str(i) for i in range(SYNTH_TRACKS)]
+    db = api.FingerprintDB(cfg, filters_np, ids, allp,
+                           np.full(SYNTH_TRACKS, allp.shape[1], np.int32), device=dev)
+    check(counts == {"cqt": SYNTH_TRACKS, "fingerprint": SYNTH_TRACKS},
+          f"synth catalog launches {counts}")
+    rng = np.random.default_rng(33)
+    qids = rng.choice(SYNTH_TRACKS, SYNTH_QUERIES, replace=False)
+    q_len = int(CLI_QUERY_SECONDS * cfg.sample_rate)
+    starts = rng.integers(0, int(SYNTH_SECONDS * cfg.sample_rate) - q_len, SYNTH_QUERIES)
+    qs = sd.query_batch(qids, starts, SYNTH_SECONDS, CLI_QUERY_SECONDS, cfg, noise_db=-12.0,
+                        device=dev)
+    qprints = api.fingerprint_batch_device(qs, filt, cfg).cpu().numpy().view(np.uint32)
+    found = []
+    for tid, start, qp in zip(qids, starts, qprints):
+        top, scores, offs = api.match(qp, db, top_k=2)
+        found.append(top[0] == str(tid))
+        check(found[-1], f"synth query of track {tid} (start {start}): top {top}, "
+              f"scores {scores}")
+    sub = api.FingerprintDB(cfg, filters_np, ids[:SYNTH_COVER_SCOPE],
+                            allp[:SYNTH_COVER_SCOPE], db.lengths[:SYNTH_COVER_SCOPE],
+                            device=dev)
+    margins = []
+    for cov in range(SYNTH_COVER_SCOPE):
+        src = sd.cover_source(cov)
+        if src is None:
+            continue
+        rid, rs, _ = api.match(allp[cov, 200:200 + qprints.shape[1]], sub,
+                               top_k=SYNTH_COVER_SCOPE)
+        score = dict(zip(rid, (int(x) for x in rs)))
+        unrelated = max(v for k, v in score.items() if k not in (str(cov), str(src)))
+        margins.append(score[str(src)] - unrelated)
+        check(margins[-1] > 0, f"cover {cov}: source {src} scores {score[str(src)]}, an "
+              f"unrelated track {unrelated}")
+    t_ids = np.arange(8) * 37
+    on_card = sd.synth_batch(t_ids, SYNTH_CHECK_SECONDS, cfg, device=dev).cpu().numpy()
+    on_cpu = sd.synth_batch(t_ids, SYNTH_CHECK_SECONDS, cfg, device="cpu").numpy()
+    diff = on_card.astype(np.float64) - on_cpu
+    max_abs = float(np.abs(diff).max())
+    rel = float(np.sqrt(np.mean(diff ** 2) / np.mean(on_cpu.astype(np.float64) ** 2)))
+    check(max_abs < SYNTH_TOL[0] and rel < SYNTH_TOL[1],
+          f"synth_batch card vs CPU: max |diff| {max_abs}, relative RMS {rel}")
+    log(f"phase 33 synth_device: {SYNTH_TRACKS} x {SYNTH_SECONDS:.0f} s rendered on the card "
+        f"in batches of {SYNTH_BATCH} ({SYNTH_BATCH * int(SYNTH_SECONDS * cfg.sample_rate) * 4 / 1e6:.0f} MB a batch): "
+        f"render {render_s:.2f} s = {SYNTH_TRACKS / render_s:.0f} tracks/s, render + "
+        f"extraction {build_s:.2f} s = {SYNTH_TRACKS / build_s:.0f} tracks/s; "
+        f"{sum(found)}/{SYNTH_QUERIES} noisy 10 s queries first; {len(margins)} covers "
+        f"over their sources by {min(margins)}-{max(margins)} bits against the best "
+        f"unrelated track; card vs CPU ({len(t_ids)} x {SYNTH_CHECK_SECONDS:.0f} s): "
+        f"max |diff| {max_abs:.3g}, relative RMS {rel:.3g}; whole phase "
+        f"{time.perf_counter() - t_phase:.1f} s; launches {counts}")
 
 
 if __name__ == "__main__":

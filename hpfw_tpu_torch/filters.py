@@ -1,4 +1,4 @@
-"""Projection filters: the sign convention and the hand-over from hpfw_tpu.
+"""Projection filters: the hand-over from hpfw_tpu.
 
 Filters are plain (context_dim, 64) float32 arrays that both packages share.
 Their rows are time-major: rows [j*n_bins, (j+1)*n_bins) act on spectrogram
@@ -13,18 +13,6 @@ import numpy as np
 import torch
 
 from .config import HpfwConfig
-
-
-def fix_eigenvector_signs(filters: np.ndarray) -> np.ndarray:
-    """Deterministic sign convention: max-|value| component positive.
-
-    A copy of hpfw_tpu.oracle.pipeline.fix_eigenvector_signs.
-    """
-    filters = np.array(filters, copy=True)
-    idx = np.argmax(np.abs(filters), axis=0)
-    signs = np.sign(filters[idx, np.arange(filters.shape[1])])
-    signs[signs == 0] = 1.0
-    return filters * signs
 
 
 def filters_from_jax(filters_np: np.ndarray, cfg: HpfwConfig,

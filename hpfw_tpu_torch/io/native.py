@@ -1,15 +1,18 @@
 """ctypes bindings for the C++ audio decoders and resampler (native/*.cc).
 
-The port's copy of the part of hpfw_tpu/io/native.py that file ingestion and
-load_audio use: the decode_* entry points, resample_sinc and ingest_files.
-At first use the library is compiled from native/hpfw_native.cc,
+The port's copy of hpfw_tpu/io/native.py: the decode_* entry points,
+resample_sinc and ingest_files (file ingestion and load_audio), and the
+native CPU pipeline, fingerprint_cpu, resample_linear and match_db (the CLI's
+`fingerprint --cpu`), copied verbatim (they take the uint64 packing from the
+port's oracle copy). At first use the library is compiled from native/hpfw_native.cc,
 hpfw_mp3.cc, hpfw_aac.cc and hpfw_opus.cc with the flags of native/Makefile,
 one g++ a source, all started together, into
 build/hpfw_tpu_torch/native-<hash of sources and flags>/ at the repository
 root (never native/libhpfw_native.so, which hpfw_tpu's own build owns). The
 build runs under a file lock and renames its output into place, so that
-concurrent processes build once. There is no fallback: a missing compiler
-or a failed build raises.
+concurrent processes build once. There is no fallback: a missing compiler,
+a failed build or a missing symbol raises (load_library never returns None,
+so the copies' `lib is None` checks never fire).
 """
 
 from __future__ import annotations
@@ -98,6 +101,23 @@ def load_library() -> ctypes.CDLL:
     lib.hpfw_resample_sinc.restype = None
     lib.hpfw_resample_sinc.argtypes = [f32p, ctypes.c_int64, ctypes.c_int32,
                                        ctypes.c_int32, f32p, ctypes.c_int64]
+    lib.hpfw_fingerprint.restype = ctypes.c_int
+    lib.hpfw_fingerprint.argtypes = [
+        f32p, ctypes.c_int64, f32p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_uint64), i64p]
+    lib.hpfw_resample_len.restype = ctypes.c_int64
+    lib.hpfw_resample_len.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32]
+    lib.hpfw_resample_linear.restype = None
+    lib.hpfw_resample_linear.argtypes = [f32p, ctypes.c_int64, ctypes.c_int32,
+                                         ctypes.c_int32, f32p, ctypes.c_int64]
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.hpfw_match_db.restype = None
+    lib.hpfw_match_db.argtypes = [u64p, ctypes.c_int64, u64p, i64p, ctypes.c_int64,
+                                  ctypes.c_int64, i64p, i64p, ctypes.c_int32]
     lib.hpfw_ingest_files.restype = ctypes.c_void_p
     lib.hpfw_ingest_files.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64,
                                       ctypes.c_int32, ctypes.c_int32]
@@ -181,6 +201,85 @@ def decode_opus(data: bytes, return_final_range: bool = False):
     if return_final_range:
         return out, int(rate.value), int(fr.value)
     return out, int(rate.value)
+
+
+def fingerprint_cpu(pcm: np.ndarray, filters: np.ndarray, cfg,
+                    n_threads: int = 0) -> np.ndarray:
+    """Full native extraction: PCM -> packed hashprints (N, 2) uint32.
+
+    The reference's C++ fingerprint() surface (SURVEY.md §1.2) — CQT,
+    projection, delta, sign, pack entirely in hpfw_native.cc, threaded over
+    frames. Float64 like the oracle; equal to oracle.fingerprint except at
+    ~zero delta margins (margin-audited in tests/test_native.py).
+    """
+    from ..oracle.pipeline import uint64_to_packed
+
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    x = np.ascontiguousarray(pcm, dtype=np.float32)
+    f = np.ascontiguousarray(filters, dtype=np.float32)
+    assert f.shape == (cfg.context_dim, 64)
+    n = ctypes.c_int64(0)
+    args = (x.shape[0], _fptr(f, ctypes.c_float),
+            cfg.sample_rate, cfg.frame_len, cfg.hop, cfg.n_bins,
+            cfg.fmin, cfg.bins_per_octave,
+            1 if cfg.window == "hamming" else 0, cfg.log_eps,
+            cfg.context_w, cfg.delta_lag,
+            1 if cfg.bit_order == "msb0" else 0,
+            1 if cfg.tie_break == "ge" else 0, n_threads)
+    rc = lib.hpfw_fingerprint(_fptr(x, ctypes.c_float), *args,
+                              None, ctypes.byref(n))
+    if rc != 0:
+        raise ValueError(f"native fingerprint failed (code {rc})")
+    out = np.empty(max(n.value, 1), dtype=np.uint64)
+    rc = lib.hpfw_fingerprint(_fptr(x, ctypes.c_float), *args,
+                              _fptr(out, ctypes.c_uint64), ctypes.byref(n))
+    if rc != 0:
+        raise ValueError(f"native fingerprint failed (code {rc})")
+    return uint64_to_packed(out[: n.value])
+
+
+def resample_linear(pcm: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if sr_in == sr_out:
+        return np.asarray(pcm, dtype=np.float32)
+    x = np.ascontiguousarray(pcm, dtype=np.float32)
+    n_out = lib.hpfw_resample_len(x.shape[0], sr_in, sr_out)
+    out = np.empty(n_out, dtype=np.float32)
+    lib.hpfw_resample_linear(_fptr(x, ctypes.c_float), x.shape[0], sr_in,
+                             sr_out, _fptr(out, ctypes.c_float), n_out)
+    return out
+
+
+def match_db(query_packed: np.ndarray, tracks: list[np.ndarray],
+             n_threads: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Threaded CPU Hamming scan. Inputs are (N, 2)-uint32 packed prints.
+
+    Returns per-track (best_scores, best_offsets), semantics identical to
+    oracle.match_track.
+    """
+    from ..oracle.pipeline import packed_to_uint64
+
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    q = np.ascontiguousarray(packed_to_uint64(query_packed))
+    lengths = np.array([t.shape[0] for t in tracks], dtype=np.int64)
+    max_len = max(int(lengths.max(initial=1)), 1)
+    db = np.zeros((len(tracks), max_len), dtype=np.uint64)
+    for i, t in enumerate(tracks):
+        db[i, : t.shape[0]] = packed_to_uint64(t)
+    scores = np.empty(len(tracks), dtype=np.int64)
+    offsets = np.empty(len(tracks), dtype=np.int64)
+    lib.hpfw_match_db(_fptr(q, ctypes.c_uint64), q.shape[0],
+                      _fptr(db, ctypes.c_uint64), _fptr(lengths, ctypes.c_int64),
+                      len(tracks), max_len,
+                      _fptr(scores, ctypes.c_int64), _fptr(offsets, ctypes.c_int64),
+                      n_threads)
+    return scores, offsets
 
 
 def resample_sinc(pcm: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:

@@ -21,7 +21,7 @@ import torch
 
 from ..api import default_device
 from ..config import HpfwConfig
-from ..filters import fix_eigenvector_signs
+from ..oracle.pipeline import fix_eigenvector_signs
 from ..ops import frontend
 from ..ops.dot import precise_matmul
 from ..ops.fingerprint import context_matrix

@@ -17,32 +17,9 @@ import numpy as np
 import torch
 
 from ..config import HpfwConfig
+from ..oracle.pipeline import cqt_kernel_matrix
 from . import _build
 from .dot import precise_matmul
-
-
-def cqt_kernel_matrix(cfg: HpfwConfig) -> np.ndarray:
-    """Dense complex NDFT kernel, shape (frame_len, n_bins), complex128.
-
-    A copy of hpfw_tpu.oracle.pipeline.cqt_kernel_matrix: bin k's kernel is a
-    window-weighted complex exponential of length N_k = ceil(Q * sr / f_k),
-    centred in the frame and normalised by N_k.
-    """
-    cfg.validate()
-    K = np.zeros((cfg.frame_len, cfg.n_bins), dtype=np.complex128)
-    q = cfg.q_factor
-    for k in range(cfg.n_bins):
-        f_k = cfg.bin_frequency(k)
-        n_k = int(np.ceil(q * cfg.sample_rate / f_k))
-        n = np.arange(n_k, dtype=np.float64)
-        if cfg.window == "hann":
-            win = 0.5 - 0.5 * np.cos(2.0 * np.pi * (n + 0.5) / n_k)
-        else:  # hamming
-            win = 0.54 - 0.46 * np.cos(2.0 * np.pi * (n + 0.5) / n_k)
-        phase = np.exp(-2j * np.pi * f_k * n / cfg.sample_rate)
-        offset = (cfg.frame_len - n_k) // 2
-        K[offset:offset + n_k, k] = win * phase / n_k
-    return K
 
 
 @functools.lru_cache(maxsize=8)

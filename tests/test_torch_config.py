@@ -2,11 +2,13 @@
 
 hpfw_tpu_torch cannot import hpfw_tpu (whose package import pulls in jax),
 so it carries copies of the config, the synthetic-audio generators (tracks,
-artist tracks, queries, pitch shift), the eigenvector sign convention, the
-CQT kernel matrix, match/align.py, and the audio I/O of io/wav.py with the
-MPEG and ADTS frame headers its sniffers read. These tests hold each copy
-bit-identical to the original, prove the port imports no jax, and check
-that the kernel build fails loudly without a CUDA toolkit.
+artist tracks, queries, pitch shift), the float64 oracle (oracle/pipeline.py,
+the one home of the eigenvector sign convention and the CQT kernel matrix),
+match/align.py, the audio I/O of io/wav.py with the MPEG and ADTS frame
+headers its sniffers read, the native CPU pipeline's wrappers, the
+profiling scopes and the device synthesizer's host-side helpers. These
+tests hold each copy bit-identical to the original, prove the port imports
+no jax, and check that the kernel build fails loudly without a CUDA toolkit.
 """
 
 import inspect
@@ -24,18 +26,25 @@ from hpfw_tpu.io import aac as jax_aac
 from hpfw_tpu.io import mp3 as jax_mp3
 from hpfw_tpu.io import native as jax_native
 from hpfw_tpu.io import synth as jax_synth
+from hpfw_tpu.io import synth_jax
 from hpfw_tpu.io import wav as jax_wav
 from hpfw_tpu.match import align as jax_align
 from hpfw_tpu.ops import frontend as jax_frontend
+from hpfw_tpu.oracle import pipeline as jax_pipeline
+from hpfw_tpu.utils import profiling as jax_profiling
 from hpfw_tpu_torch import filters as port_filters
+from hpfw_tpu_torch import oracle as port_oracle
 from hpfw_tpu_torch.config import HpfwConfig as PortConfig
 from hpfw_tpu_torch.io import _sniff as port_sniff
 from hpfw_tpu_torch.io import native as port_native
 from hpfw_tpu_torch.io import synth as port_synth
+from hpfw_tpu_torch.io import synth_device
 from hpfw_tpu_torch.io import wav as port_wav
 from hpfw_tpu_torch.match import align as port_align
 from hpfw_tpu_torch.ops import _build
 from hpfw_tpu_torch.ops import frontend as port_frontend
+from hpfw_tpu_torch.oracle import pipeline as port_pipeline
+from hpfw_tpu_torch.utils import profiling as port_profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(frame_len=2048, fmin=380.0, n_bins=73, hop=256, context_w=8,
@@ -131,12 +140,18 @@ IO_COPIES = [
                            "SAMPLE_RATES_V25", "FrameHeader", "_find_sync",
                            "_free_format_size", "_skip_id3"]),
     (port_sniff, jax_aac, ["ADTS_RATES", "_AdtsHeader", "_find_adts"]),
-    (port_native, jax_native, ["_fptr"]),
+    (port_native, jax_native, ["_fptr", "fingerprint_cpu", "resample_linear", "match_db"]),
+    (port_pipeline, jax_pipeline, list(oracle.__all__)),
+    (port_oracle, oracle, ["__all__"]),
+    (port_profiling, jax_profiling, ["scope_stats", "reset_scopes", "dump_metrics"]),
+    (synth_device, synth_jax, ["cover_source", "artist_style", "COVER_PERIOD",
+                               "COVER_SHIFT_ST", "N_PARTIALS", "NOISE_DB"]),
 ]
 
 
 @pytest.mark.parametrize("port_mod,jax_mod,names", IO_COPIES,
-                         ids=["wav", "mp3_headers", "adts_headers", "native"])
+                         ids=["wav", "mp3_headers", "adts_headers", "native", "oracle",
+                              "oracle_names", "profiling", "synth_device"])
 def test_io_copies_identical(port_mod, jax_mod, names):
     for name in names:
         ours, theirs = getattr(port_mod, name), getattr(jax_mod, name)
@@ -159,14 +174,18 @@ def test_fix_eigenvector_signs_identical():
     rng = np.random.default_rng(0)
     f = rng.standard_normal((40, 64))
     f[:, 3] = 0.0   # an all-zero column keeps sign +1
-    np.testing.assert_array_equal(port_filters.fix_eigenvector_signs(f),
+    np.testing.assert_array_equal(port_oracle.fix_eigenvector_signs(f),
                                   oracle.fix_eigenvector_signs(f))
+    from hpfw_tpu_torch.learn import pca
+
+    assert pca.fix_eigenvector_signs is port_pipeline.fix_eigenvector_signs
 
 
 @pytest.mark.parametrize("kw", [SMALL, {}, dict(window="hamming", **SMALL)],
                          ids=["small", "default", "hamming"])
 def test_cqt_kernel_matrix_identical(kw):
-    np.testing.assert_array_equal(port_frontend.cqt_kernel_matrix(PortConfig(**kw)),
+    assert port_frontend.cqt_kernel_matrix is port_pipeline.cqt_kernel_matrix
+    np.testing.assert_array_equal(port_pipeline.cqt_kernel_matrix(PortConfig(**kw)),
                                   oracle.pipeline.cqt_kernel_matrix(JaxConfig(**kw)))
     for a, b in zip(port_frontend.cqt_kernel_arrays(PortConfig(**kw)),
                     jax_frontend.cqt_kernel_arrays(JaxConfig(**kw))):
@@ -193,7 +212,10 @@ def test_port_imports_no_jax():
             "hpfw_tpu_torch.serve, hpfw_tpu_torch.streaming.session, "
             "hpfw_tpu_torch.streaming.pool, hpfw_tpu_torch.learn.pca, "
             "hpfw_tpu_torch.match.align, hpfw_tpu_torch.artist, hpfw_tpu_torch.io.wav, "
-            "hpfw_tpu_torch.io.ingest, hpfw_tpu_torch.io.native; "
+            "hpfw_tpu_torch.io.ingest, hpfw_tpu_torch.io.native, hpfw_tpu_torch.cli, "
+            "hpfw_tpu_torch.oracle, hpfw_tpu_torch.oracle.pipeline, "
+            "hpfw_tpu_torch.utils.profiling, hpfw_tpu_torch.io.synth_device, "
+            "hpfw_tpu_torch.io._threefry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hpfw_tpu')]; "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -16,7 +16,8 @@ import torch
 
 from hpfw_tpu_torch import ChunkedExtractor, MatchServer, StreamingSession, api
 from hpfw_tpu_torch.config import HpfwConfig
-from hpfw_tpu_torch.filters import filters_from_jax, fix_eigenvector_signs
+from hpfw_tpu_torch.filters import filters_from_jax
+from hpfw_tpu_torch.oracle import fix_eigenvector_signs
 from hpfw_tpu_torch.io import synth
 from hpfw_tpu_torch.learn import pca
 from hpfw_tpu_torch.match import matcher
@@ -898,3 +899,63 @@ def test_db_mesh_past_the_cards_raises(dev):
         meshlib.db_mesh(n + 1)
     with pytest.raises(ValueError, match=f"torch sees {n} CUDA devices"):
         meshlib.Mesh([torch.device("cuda", n)])
+
+
+# ---- the CLI and the device synthesizer ----
+
+def _cli(argv):
+    import contextlib
+    import io
+
+    from hpfw_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def test_cli_selfcheck_on_card(dev):
+    import json
+
+    rc, out = _cli(["selfcheck"])
+    got = json.loads(out)
+    assert rc == 0 and got["backend"] == "cuda"
+    assert got["differing_bits"] <= got["total_bits"] * 1e-4
+
+
+def test_cli_fingerprint_card_against_native_cpu(dev, tmp_path):
+    """fingerprint on the card and --cpu (the native C++ extraction) within
+    selfcheck's 1e-4 gate, at the default config."""
+    from hpfw_tpu_torch.io import wav
+
+    cfg = HpfwConfig()
+    path = str(tmp_path / "t.wav")
+    wav.save_wav(path, synth.synth_track(5, 12.0, cfg), cfg.sample_rate)
+    np.savez(tmp_path / "f.npz", filters=_filters(cfg))
+    base = ["fingerprint", path, "--filters", str(tmp_path / "f.npz")]
+    assert _cli(base + ["-o", str(tmp_path / "card.npz")])[0] == 0
+    assert _cli(base + ["--cpu", "-o", str(tmp_path / "cpu.npz")])[0] == 0
+    a, b = np.load(tmp_path / "card.npz")["prints"], np.load(tmp_path / "cpu.npz")["prints"]
+    assert a.shape == b.shape == (cfg.n_hashprints(int(12.0 * cfg.sample_rate)), 2)
+    assert int(np.bitwise_count(a ^ b).sum()) <= a.size * 32 * 1e-4
+
+
+@pytest.mark.parametrize("kind", ["catalog", "artist"])
+def test_synth_device_card_against_cpu(dev, kind):
+    """4 tracks of 6 s rendered on the card and on the CPU, within the
+    tolerance tests/test_torch_synth_device.py holds the port to jax."""
+    from hpfw_tpu_torch.io import synth_device as sd
+
+    cfg = HpfwConfig()
+    if kind == "catalog":
+        make = functools.partial(sd.synth_batch, [0, 3, 17, 1234], 6.0, cfg)
+        tol = (1e-2, 3e-3)
+    else:
+        make = functools.partial(sd.synth_artist_batch, 3, [0, 1, 2, 5], 6.0, cfg)
+        tol = (2.5e-2, 1.2e-2)
+    got = make(device=dev)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    want = make(device="cpu").numpy()
+    diff = got.cpu().numpy().astype(np.float64) - want
+    assert np.abs(diff).max() < tol[0]
+    assert np.sqrt(np.mean(diff ** 2) / np.mean(want.astype(np.float64) ** 2)) < tol[1]
