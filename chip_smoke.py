@@ -151,10 +151,22 @@ then the port's remaining surfaces at the default config:
      rank their tracks first; each cover in the first 100 tracks scores its
      source above every unrelated track; 8 x 6 s rendered on the card
      against the same call on the CPU within the CPU tests' tolerance;
-     tracks rendered a second.
-Each path (phases 4, 10, 14-33) runs with the launch counters set to 0 just
-before it and read just after; comparison and timing launches are not
-counted, and a plain-version run checks that K1 and K2 did not launch. Kernel times are CUDA events over launches queued behind a
+     tracks rendered a second;
+ 34. the float64 oracle's margin audit (oracle/audit.py) of the card's
+     prints at HpfwConfig(), through K1 -> K2 and through the plain versions
+     on the card: api.fingerprint of 8, 15 and 30 s synthetic tracks and of
+     phase 3's 240 s track, and K2 on phase 3's 32-print windows of the
+     240 s spectrum; the differing and free bits of each;
+ 35. graft_entry.entry(): its forward step on the card launches K1 and K2
+     once each, its prints pass the audit, its time by CUDA events;
+ 36. TwoStageDB.warmup in fresh processes: a catalog_scale() cache of phase
+     33's prints loaded, in turns, by a process that runs warmup([430],
+     batch_sizes=(16,)) and one that does not; each one's first match and
+     the median of the next 21 (host clock), the same answers in all.
+Each path (phases 4, 10, 14-33, 35, and 36's processes) runs with the launch
+counters set to 0 just before it and read just after; comparison and timing
+launches are not counted, and a plain-version run checks that K1 and K2 did
+not launch. Kernel times are CUDA events over launches queued behind a
 spin kernel (cuda_ms). The last two lines are a JSON object of per-kernel
 results (time, plain and library time, bound) and {"ok": true, "device":
 {...}}.
@@ -239,7 +251,7 @@ def nbytes(*tensors) -> int:
 
 
 # Launch counts of every kernel summed over the main-path runs (phases 4, 10,
-# 14-33), each read right after its run.
+# 14-33, 35, and 36's fresh processes), each read right after its run.
 PATH_LAUNCHES: Counter = Counter()
 
 
@@ -1001,7 +1013,11 @@ def run_catalog(dev: torch.device, dense: dict) -> list[dict]:
     # Phases 31-33: the CLI, the profiler and the device catalog synthesizer.
     run_cli(dev)
     run_profiler(ts, qs_np)
-    run_synth_device(dev, filters_np)
+    synth_prints = run_synth_device(dev, filters_np)
+    # Phases 34-36: the oracle audit, entry() and warmup in fresh processes.
+    run_oracle_audit(dev, dense)
+    run_entry()
+    run_warmup(synth_prints, filters_np)
     source = {"fine_rescan": "fine.cu", "row_sum": "probe.cu"}
     replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
                 "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
@@ -2632,13 +2648,14 @@ def run_profiler(ts, qs_np) -> None:
         f"{counts}")
 
 
-def run_synth_device(dev: torch.device, filters_np: np.ndarray) -> None:
+def run_synth_device(dev: torch.device, filters_np: np.ndarray) -> np.ndarray:
     """Phase 33: io/synth_device.py at catalog scale: SYNTH_TRACKS x 60 s
     rendered on the card in batches of SYNTH_BATCH, each batch fingerprinted
     on the card and only the prints kept; a FingerprintDB of them; noisy
     10 s query_batch excerpts ranked first; each cover in the first
     SYNTH_COVER_SCOPE tracks scoring its source above every unrelated
-    track; a batch rendered on the card against the same call on the CPU."""
+    track; a batch rendered on the card against the same call on the CPU.
+    Returns the (SYNTH_TRACKS, N, 2) uint32 prints for phase 36."""
     from hpfw_tpu_torch import api
     from hpfw_tpu_torch.config import HpfwConfig
     from hpfw_tpu_torch.filters import filters_from_jax
@@ -2712,6 +2729,223 @@ def run_synth_device(dev: torch.device, filters_np: np.ndarray) -> None:
         f"unrelated track; card vs CPU ({len(t_ids)} x {SYNTH_CHECK_SECONDS:.0f} s): "
         f"max |diff| {max_abs:.3g}, relative RMS {rel:.3g}; whole phase "
         f"{time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return allp
+
+
+# ---- phases 34-36: the oracle audit, entry() and the warm-up of a fresh process ----
+
+AUDIT_SEED, AUDIT_SECONDS = 300, (8.0, 15.0, 30.0)
+ENTRY_REPS = 21
+WARM_QUERY_PRINTS, WARM_BATCH, WARM_MATCHES, WARM_TURNS = 430, 16, 21, 2
+
+
+def audit_line(name: str, got: dict, want: np.ndarray, margins: np.ndarray) -> str:
+    """Hold each path's prints in got ({"kernels": ..., "plain": ...}, (N, 2)
+    uint32) to the oracle's prints and margins by the margin audit and by
+    position (fails the run on a print beyond its margin, on a degenerate
+    audit, or on a differing bit whose own margin is not free); one line of
+    their counts."""
+    from hpfw_tpu_torch.oracle import audit
+    parts = []
+    for path, prints in got.items():
+        c = audit.margin_audit_counts(prints, want, margins)
+        check(c["over"] == 0 and not c["degenerate"] and c["off_free"] == 0,
+              f"{name} {path}: {c} against the float64 oracle")
+        parts.append(f"{path} {c['differing_bits']} differing / {c['free_bits']} free, "
+                     f"{c['off_free']} off a free bit")
+    return f"{name} ({want.shape[0]} prints): " + ", ".join(parts)
+
+
+def run_oracle_audit(dev: torch.device, dense: dict) -> None:
+    """Phase 34: the card's prints against the float64 oracle's margin audit,
+    through K1 -> K2 and through the plain versions on the card: api.fingerprint
+    of synthetic tracks of AUDIT_SECONDS and of phase 3's 240 s track, and
+    K2 on the 32-print windows of phase 3 cut from the 240 s spectrum (the
+    oracle recomputes the spectrum of those frames from their samples)."""
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.filters import filters_from_jax
+    from hpfw_tpu_torch.io import synth
+    from hpfw_tpu_torch.ops import frontend
+    from hpfw_tpu_torch.ops import fingerprint as fp_ops
+    from hpfw_tpu_torch.oracle import audit
+
+    cfg = HpfwConfig()
+    filters_np = dense["filters"]
+    t_phase = time.perf_counter()
+    oracle_s = 0.0
+    tracks = [(f"{s:.0f} s", synth.synth_track(AUDIT_SEED + int(s), s, cfg))
+              for s in AUDIT_SECONDS] + [(f"{LONG_SECONDS:.0f} s", dense["long_pcm"])]
+    lines = []
+    for name, pcm in tracks:
+        got = {"kernels": api.fingerprint(pcm, filters_np, cfg, device=dev)}
+        with plain_versions():
+            got["plain"] = api.fingerprint(pcm, filters_np, cfg, device=dev)
+        t0 = time.perf_counter()
+        want, margins = audit.oracle_prints_and_margins(pcm, filters_np, cfg)
+        oracle_s += time.perf_counter() - t0
+        lines.append(audit_line(name, got, want, margins))
+    # K2 on 67-frame windows of the 240 s spectrum (K1's, and the plain
+    # version's of the plain spectrum).
+    long_pcm = dense["long_pcm"]
+    frames = frontend.frame_signal(torch.from_numpy(long_pcm).to(dev), cfg)
+    filt = filters_from_jax(filters_np, cfg, dev)
+    spec_k = frontend.cqt_kernel(frames, cfg)
+    spec_p = frontend.cqt_from_frames_ref(frames, cfg)
+    w_frames = CHUNK_PRINTS + cfg.context_w - 1 + cfg.delta_lag
+    for o in WINDOW_OFFSETS:
+        got = {"kernels": fp_ops.encoder_kernel(spec_k[o:o + w_frames], filt, cfg),
+               "plain": fp_ops.fingerprint_from_spec_ref(spec_p[o:o + w_frames], filt, cfg)}
+        got = {k: v.cpu().numpy().view(np.uint32) for k, v in got.items()}
+        seg = long_pcm[o * cfg.hop:(o + w_frames - 1) * cfg.hop + cfg.frame_len]
+        t0 = time.perf_counter()
+        want, margins = audit.oracle_prints_and_margins(seg, filters_np, cfg)
+        oracle_s += time.perf_counter() - t0
+        check(want.shape == (CHUNK_PRINTS, 2), f"window at frame {o}: oracle {want.shape}")
+        lines.append(audit_line(f"window_32 at frame {o}", got, want, margins))
+    log(f"phase 34 oracle audit (HpfwConfig(), float64 oracle, margin audit rel_tol 1e-4; "
+        f"kernels = K1 -> K2, plain = the plain versions on the card): every print within "
+        f"its margin, every differing bit on a free bit by position; oracle {oracle_s:.1f} s on the host, whole phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for ln in lines:
+        log(f"phase 34 audit {ln}")
+
+
+def run_entry() -> None:
+    """Phase 35: graft_entry.entry() on the card, the main path's forward
+    step (K1 -> K2 on a 10 s query): its launches, the margin audit of its
+    prints, and its time by CUDA events (median of ENTRY_REPS)."""
+    from hpfw_tpu_torch import graft_entry
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.oracle import audit
+
+    forward, (pcm, filters) = graft_entry.entry()
+    check(pcm.is_cuda and filters.is_cuda, f"entry() arguments on {pcm.device}")
+    start_path()
+    out = forward(pcm, filters)
+    counts = end_path()
+    check(counts == {"cqt": 1, "fingerprint": 1}, f"phase 35 launches {counts}")
+    check(out.dtype == torch.int32 and tuple(out.shape) == (380, 2),
+          f"entry() forward: {out.dtype} {tuple(out.shape)}")
+    got = out.cpu().numpy().view(np.uint32)
+    want, margins = audit.oracle_prints_and_margins(pcm.cpu().numpy(), filters.cpu().numpy(),
+                                                    HpfwConfig())
+    line = audit_line("entry()", {"kernels": got}, want, margins)
+    times = []
+    for _ in range(ENTRY_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward(pcm, filters)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    log(f"phase 35 entry(): forward(pcm {tuple(pcm.shape)}, filters {tuple(filters.shape)}) "
+        f"-> {tuple(out.shape)} int32; launches {counts}; audit {line}; forward "
+        f"{statistics.median(times):.4f} ms (median of {ENTRY_REPS}, CUDA events around "
+        f"each call, min {min(times):.4f}, max {max(times):.4f})")
+
+
+# Phase 36's fresh process: load the cache, warm up (mode "warm") or not,
+# then time the first match and WARM_MATCHES more, and a match_batch; prints
+# one JSON line.
+WARMUP_WORKER = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+from hpfw_tpu_torch.match.scaled import TwoStageDB
+from hpfw_tpu_torch.ops import _build
+d, mode, n, b, reps = sys.argv[1], sys.argv[2], *map(int, sys.argv[3:6])
+qs = np.load(d + "/queries.npy")
+t0 = time.perf_counter()
+ts = TwoStageDB.load(d + "/cache")
+torch.cuda.synchronize()
+out = {"load_s": time.perf_counter() - t0, "warmup_s": None}
+if mode == "warm":
+    t0 = time.perf_counter()
+    ts.warmup([n], batch_sizes=(b,))
+    out["warmup_s"] = time.perf_counter() - t0
+times, answers = [], []
+for q in qs[:reps + 1]:
+    t0 = time.perf_counter()
+    ids, scores, offs = ts.match(q)
+    times.append((time.perf_counter() - t0) * 1e3)
+    answers.append([ids, scores.tolist(), offs.tolist()])
+batch = [[i, s.tolist(), o.tolist()] for i, s, o in ts.match_batch(qs[:b])]
+out.update(first_ms=times[0], median_ms=statistics.median(times[1:]), answers=answers,
+           batch=batch, launches={k: v for k, v in _build.LAUNCHES.items() if v})
+print(json.dumps(out))
+"""
+
+
+def run_warmup(prints: np.ndarray, filters_np: np.ndarray) -> None:
+    """Phase 36: TwoStageDB.warmup in a fresh process. A catalog_scale()
+    cache of phase 33's prints; then, in turns, processes that load it and
+    warm up (warmup([430], batch_sizes=(16,))) or not, each timing its first
+    match and the median of the next WARM_MATCHES by the host clock. Every
+    process gives the same answers, the planted tracks first."""
+    import tempfile
+    from pathlib import Path
+
+    from hpfw_tpu_torch import api
+    from hpfw_tpu_torch.config import HpfwConfig
+    from hpfw_tpu_torch.match.scaled import TwoStageDB
+
+    cfg = HpfwConfig.catalog_scale()
+    t_phase = time.perf_counter()
+    n_tracks = prints.shape[0]
+    db = api.FingerprintDB(cfg, filters_np, [str(i) for i in range(n_tracks)], prints,
+                           np.full(n_tracks, prints.shape[1], np.int32), device="cuda")
+    ts = TwoStageDB(db)
+    rng = np.random.default_rng(36)
+    truth = rng.choice(n_tracks, WARM_MATCHES + 1, replace=False)
+    starts = rng.integers(0, prints.shape[1] - WARM_QUERY_PRINTS, truth.shape[0])
+    qs = np.stack([noisy_excerpt(rng, prints[t], s, WARM_QUERY_PRINTS)
+                   for t, s in zip(truth, starts)])
+    root = Path(__file__).resolve().parent
+    runs = []
+    with tempfile.TemporaryDirectory(dir=root / "build") as d:
+        ts.save(str(Path(d) / "cache"))
+        cache_mb = sum(f.stat().st_size for f in (Path(d) / "cache").iterdir()) / 1e6
+        np.save(Path(d) / "queries.npy", qs)
+        for _ in range(WARM_TURNS):
+            for mode in ("warm", "cold"):
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-c", WARMUP_WORKER, d, mode, str(WARM_QUERY_PRINTS),
+                     str(WARM_BATCH), str(WARM_MATCHES)],
+                    cwd=root, capture_output=True, text=True, timeout=300)
+                check(proc.returncode == 0, f"phase 36 {mode} process: exit code "
+                      f"{proc.returncode}\n{proc.stderr[-3000:]}")
+                r = json.loads(proc.stdout.strip().splitlines()[-1])
+                r.update(mode=mode, process_s=time.perf_counter() - t0)
+                runs.append(r)
+    for r in runs:
+        check(r["answers"] == runs[0]["answers"] and r["batch"] == runs[0]["batch"],
+              f"phase 36: a {r['mode']} process answers otherwise than the first")
+        check(all(r["launches"].get(k) for k in ("coarse_scan_batch", "coarse_rescan",
+                                                 "fine_rescan")),
+              f"phase 36 {r['mode']} process launches {r['launches']}")
+        PATH_LAUNCHES.update(r["launches"])
+    first = runs[0]["answers"]
+    check(all(a[0][0] == str(t) for a, t in zip(first, truth)),
+          f"phase 36: planted tracks {truth.tolist()}, first answers {[a[0][0] for a in first]}")
+    check(all(a[0][0] == str(t) for a, t in zip(runs[0]["batch"], truth)),
+          "phase 36: match_batch misses a planted track")
+
+    def fmt(r):
+        w = f"warmup {r['warmup_s']:.3f} s, " if r["warmup_s"] is not None else ""
+        return (f"{r['mode']}: load {r['load_s']:.3f} s, {w}first match {r['first_ms']:.2f} ms, "
+                f"median of the next {WARM_MATCHES} {r['median_ms']:.2f} ms "
+                f"(process {r['process_s']:.1f} s)")
+
+    log(f"phase 36 warmup: catalog_scale() cache of {n_tracks} x {prints.shape[1]} prints "
+        f"({cache_mb:.0f} MB); {len(runs)} fresh processes in "
+        f"turns, queries of {WARM_QUERY_PRINTS} prints with {CFG4_FLIP:.0%} of bits flipped: "
+        f"every process gives the same {WARM_MATCHES + 1} match and {WARM_BATCH}-query "
+        f"match_batch answers, each planted track first; whole phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for r in runs:
+        log(f"phase 36 {fmt(r)}; launches {r['launches']}  (host clock)")
 
 
 if __name__ == "__main__":

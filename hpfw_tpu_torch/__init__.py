@@ -6,13 +6,14 @@ matcher and the serving and streaming surfaces over it run on an NVIDIA H100
 through hand-written CUDA kernels (csrc/), and on the CPU through their
 plain PyTorch versions, which the tests hold against hpfw_tpu.
 
-Public surface (the slice of hpfw_tpu's that is ported so far):
+Public surface (hpfw_tpu's, less tests/test_torch_surface.py's BY_DESIGN list):
     fingerprint(audio)    -> hashprint sequence
     match(query, db)      -> ranked track IDs
     build_db / FingerprintDB.save/load
     build_db_from_files(paths) -> FingerprintDB          (native decode, io/ingest.py)
     fingerprint_stream(batches) -> hashprints            (two batches in flight)
     TwoStageDB(db).match / match_batch / save / load   (catalog scale)
+    TwoStageDB.warmup / bundle_compile_cache            (serving warm-up)
     MatchServer(ts, n).submit -> future                 (serving)
     EscalatingMatchServer(ts, filters, samples).submit   (PCM-in serving with escalation)
     StreamingSession .feed -> hypotheses                 (live ID, tempo/pitch scan)
@@ -22,6 +23,7 @@ Public surface (the slice of hpfw_tpu's that is ported so far):
     fingerprint_scan_batch / match_scan_escalating       (rendition scans)
     fingerprint_multi, ArtistDB                          (known-artist mode)
     db_mesh / Mesh, ShardedDB, TwoStageDB(mesh=)         (track-sharded matching)
+    graft_entry.entry() -> (forward, args)               (the main path's forward step)
 """
 
 from .api import (FingerprintDB, build_db, build_db_from_files, fingerprint,

@@ -189,34 +189,31 @@ def cmd_match(args):
 
 def cmd_build_cache(args):
     """Derive + persist the two-stage serving state (the reference's cache
-    layout, which both packages load). The port's TwoStageDB keeps no host
-    copy (the reference's keep_host=True): save() copies the prints and
-    coarse rows back from the device once."""
+    layout, which both packages load)."""
     from . import api
     from .match.scaled import TwoStageDB
 
     db = api.FingerprintDB.load(args.db, device=args.device)
     t0 = time.time()
     ts = TwoStageDB(db, stride=args.stride, coarse_channels=args.channels,
-                    prefilter_channels=args.prefilter_channels)
+                    prefilter_channels=args.prefilter_channels,
+                    keep_host=True)
     print(f"derived two-stage state in {time.time() - t0:.1f}s")
     ts.save(args.output)
     print(f"wrote {args.output} ({db.n_tracks} tracks, stride {ts.stride}, "
           f"C={ts.coarse_channels})")
     if args.warmup_prints:
-        # No compile cache to seed: the kernels build once per machine. Load
-        # the cache as a server would and run each serving program once.
         batches = tuple(int(x) for x in args.warmup_batches.split(",") if x)
         t0 = time.time()
+        # No compile cache to seed (the kernels build once a machine): load
+        # the artifact as a server would and warm it, which shows it loads
+        # and serves; the warm-up does not carry over to another process.
         served = TwoStageDB.load(args.output, device=args.device)
-        q = np.random.default_rng(0).integers(
-            0, 2 ** 32, (args.warmup_prints, 2), dtype=np.uint32)
-        served.match(q)
-        for b in batches:
-            served.match_batch(np.stack([q] * b))
+        n = served.bundle_compile_cache(args.output, [args.warmup_prints],
+                                        batch_sizes=batches)
         print(f"warmed serving compiles for N={args.warmup_prints}, "
               f"batches {batches or '()'} in {time.time() - t0:.1f}s "
-              "(0 compile-cache entries bundled into the artifact; "
+              f"({n} compile-cache entries bundled into the artifact; "
               "the port has no compile cache to seed)")
     return 0
 

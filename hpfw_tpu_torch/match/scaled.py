@@ -252,7 +252,9 @@ class TwoStageDB:
     every shard before the candidate blocks meet on the first device,
     `device`. On a CUDA device the coarse and fine stages run through K4
     and K5; on the CPU through their plain versions. The knobs default to
-    db.cfg's, as in the reference.
+    db.cfg's, as in the reference. keep_host is the reference's keyword and
+    changes nothing: save() copies the prints and coarse rows back from the
+    devices once and writes the same bytes either way.
     """
 
     _CACHE_VERSION = 1
@@ -270,6 +272,7 @@ class TwoStageDB:
                  prefilter_channels: int | None = None,
                  prefilter_pack4: bool | None = None,
                  mesh: Mesh | None = None,
+                 keep_host: bool = False,
                  device: str | torch.device | None = None):
         cfg = db.cfg
         self.db = db
@@ -403,7 +406,7 @@ class TwoStageDB:
             json.dump(manifest, f, indent=1)
 
     @classmethod
-    def load(cls, path: str, *, mesh: Mesh | None = None,
+    def load(cls, path: str, *, mesh: Mesh | None = None, mmap: bool = True,
              device: str | torch.device | None = None) -> "TwoStageDB":
         """Rebuild a TwoStageDB from a save() directory of either package,
         without re-deriving: on device (default: the card; raises when torch
@@ -421,7 +424,8 @@ class TwoStageDB:
         reference does. A mesh cache splits into shards at its own padded
         length, never padded again, so every shard holds the reference's
         rows. Without word planes the pool is exactly min(pool, tracks), as
-        the reference's lax.top_k takes it."""
+        the reference's lax.top_k takes it. mmap=False reads each array
+        whole instead of mapping it, as in the reference."""
         with open(os.path.join(path, "manifest.json")) as f:
             m = json.load(f)
         if m["format_version"] != cls._CACHE_VERSION:
@@ -434,7 +438,7 @@ class TwoStageDB:
                 "this layout")
 
         def grab(name):
-            return np.load(os.path.join(path, name + ".npy"), mmap_mode="r")
+            return np.load(os.path.join(path, name + ".npy"), mmap_mode="r" if mmap else None)
 
         cfg = HpfwConfig.from_json(m["config_json"])
         lengths = np.array(grab("lengths"), dtype=np.int32)
@@ -551,9 +555,45 @@ class TwoStageDB:
                 pool_exact=self._pool_exact, base=i * t_shard))
         return blocks[0] if self.mesh is None else gather_blocks(blocks, self.mesh, dim=2)
 
-    def dispatch(self, query_dev: torch.Tensor, **kw) -> torch.Tensor:
+    def dispatch(self, query_dev: torch.Tensor, *, pool: int | None = None,
+                 fine_window: int | None = None, phases: int | None = None,
+                 prefilter: int | None = None, phases1: int | None = None) -> torch.Tensor:
         """One query (N, 2) int32: the (3, K) tensor of dispatch_batch."""
-        return self.dispatch_batch(query_dev[None], **kw)[0]
+        return self.dispatch_batch(query_dev[None], pool=pool, fine_window=fine_window,
+                                   phases=phases, prefilter=prefilter, phases1=phases1)[0]
+
+    def _synchronize(self) -> None:
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def warmup(self, query_lens, *, batch_sizes=(), pool: int | None = None,
+               fine_window: int | None = None) -> None:
+        """Run the serving programs once now, on zero queries: dispatch for
+        each query length and dispatch_batch for each batch size at that
+        length, every device synchronised after each, as the reference runs
+        them to compile them. The port compiles nothing per shape; what this
+        takes out of a server's first request is the first use of each
+        kernel (loading the kernel library) and the allocator's first blocks
+        for those shapes. Under a mesh every shard runs."""
+        for n in query_lens:
+            q = torch.zeros((int(n), 2), dtype=torch.int32, device=self.device)
+            self.dispatch(q, pool=pool, fine_window=fine_window)
+            self._synchronize()
+            for b in batch_sizes:
+                self.dispatch_batch(q.new_zeros((int(b), int(n), 2)), pool=pool,
+                                    fine_window=fine_window)
+                self._synchronize()
+
+    def bundle_compile_cache(self, path: str, query_lens, *, batch_sizes=(),
+                             pool: int | None = None, fine_window: int | None = None) -> int:
+        """warmup(), then the number of compile-cache entries bundled into
+        the save() directory path: always 0. The reference ships its XLA
+        compile-cache entries there; the port has no compile cache (its
+        kernels build once a machine, ops/_build.py), so it writes nothing
+        under path, and load() needs nothing but save()'s files."""
+        self.warmup(query_lens, batch_sizes=batch_sizes, pool=pool, fine_window=fine_window)
+        return 0
 
     def _stretch_factors(self, span, step):
         """Resolve the tempo-scan grid for a dispatch (None = config)."""

@@ -6,13 +6,15 @@ artist tracks, queries, pitch shift), the float64 oracle (oracle/pipeline.py,
 the one home of the eigenvector sign convention and the CQT kernel matrix),
 match/align.py, the audio I/O of io/wav.py with the MPEG and ADTS frame
 headers its sniffers read, the native CPU pipeline's wrappers, the
-profiling scopes and the device synthesizer's host-side helpers. These
-tests hold each copy bit-identical to the original, prove the port imports
-no jax, and check that the kernel build fails loudly without a CUDA toolkit.
+profiling scopes, the device synthesizer's host-side helpers and the golden
+tests' margin audit (oracle/audit.py). These tests hold each copy
+bit-identical to the original, prove the port imports no jax, and check
+that the kernel build fails loudly without a CUDA toolkit.
 """
 
 import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -43,8 +45,10 @@ from hpfw_tpu_torch.io import wav as port_wav
 from hpfw_tpu_torch.match import align as port_align
 from hpfw_tpu_torch.ops import _build
 from hpfw_tpu_torch.ops import frontend as port_frontend
+from hpfw_tpu_torch.oracle import audit as port_audit
 from hpfw_tpu_torch.oracle import pipeline as port_pipeline
 from hpfw_tpu_torch.utils import profiling as port_profiling
+from test_tpu_pipeline import assert_bits_match_with_margin_audit as golden_audit
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(frame_len=2048, fmin=380.0, n_bins=73, hop=256, context_w=8,
@@ -215,7 +219,8 @@ def test_port_imports_no_jax():
             "hpfw_tpu_torch.io.ingest, hpfw_tpu_torch.io.native, hpfw_tpu_torch.cli, "
             "hpfw_tpu_torch.oracle, hpfw_tpu_torch.oracle.pipeline, "
             "hpfw_tpu_torch.utils.profiling, hpfw_tpu_torch.io.synth_device, "
-            "hpfw_tpu_torch.io._threefry; "
+            "hpfw_tpu_torch.io._threefry, hpfw_tpu_torch.graft_entry, "
+            "hpfw_tpu_torch.oracle.audit; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hpfw_tpu')]; "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -229,3 +234,85 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library()
+
+
+@pytest.fixture(scope="module")
+def audit_track():
+    """A small-config track's oracle prints and margins, and the bit of each
+    (print, filter) in the packed words (lsb0: filter i is bit i % 32 of
+    word i // 32)."""
+    cfg = JaxConfig(**SMALL)
+    pcm = jax_synth.synth_track(5, 2.0, cfg)
+    filters = oracle.fix_eigenvector_signs(
+        np.random.default_rng(0).standard_normal((cfg.context_dim, 64))).astype(np.float32)
+    return pcm, filters, oracle.fingerprint(pcm, filters, cfg), \
+        oracle.delta_margins(pcm, filters, cfg)
+
+
+def _flip(prints, where):
+    out = prints.copy()
+    for n, i in where:
+        out[n, i // 32] ^= np.uint32(1 << (i % 32))
+    return out
+
+
+def test_audit_copy_identical():
+    assert (inspect.getsource(port_audit.assert_bits_match_with_margin_audit)
+            == inspect.getsource(golden_audit))
+
+
+@pytest.mark.parametrize("case", ["equal", "free_bits_flipped", "beyond_margin",
+                                  "degenerate", "off_free_in_a_free_print"])
+def test_audit_verdicts_and_counts_equal_golden(audit_track, case):
+    """The copy and the golden audit give the same verdict and message, and
+    margin_audit_counts the counts that the message states (or that pass),
+    and by position the differing bits whose own margin is not free: the
+    golden audit passes a non-free bit flipped in a print that has a free
+    bit elsewhere, and off_free counts it."""
+    _, _, want, margins = audit_track
+    rel_tol = {"free_bits_flipped": 0.005, "off_free_in_a_free_print": 0.005,
+               "degenerate": 1.0}.get(case, 1e-4)
+    floor = rel_tol * np.sqrt(np.mean(margins ** 2))
+    free = np.argwhere(margins < floor)
+    where = []
+    if case == "free_bits_flipped":
+        assert 0 < len(free) < 0.01 * margins.size
+        where = free[::2]
+    elif case == "beyond_margin":
+        where = [(3, int(np.argmax(margins[3]))), (40, 7), (40, 8)]
+    elif case == "off_free_in_a_free_print":
+        n = int(free[0, 0])
+        where = [(n, int(np.argmax(margins[n])))]
+    got = _flip(want, where)
+    verdicts = []
+    for fn in (golden_audit, port_audit.assert_bits_match_with_margin_audit):
+        try:
+            fn(got, want, margins, rel_tol=rel_tol)
+            verdicts.append(None)
+        except AssertionError as e:     # pytest appends its rewrite of the golden's assert
+            verdicts.append(str(e).splitlines()[0])
+    assert verdicts[0] == verdicts[1]
+    c = port_audit.margin_audit_counts(got, want, margins, rel_tol=rel_tol)
+    assert c["free_bits"] == len(free)
+    assert c["differing_bits"] == int(np.unpackbits((got ^ want).view(np.uint8)).sum())
+    assert (verdicts[0] is None) == (c["over"] == 0 and not c["degenerate"])
+    expect = {"equal": (0, False), "free_bits_flipped": (0, False),
+              "beyond_margin": (2, False), "degenerate": (0, True),
+              "off_free_in_a_free_print": (0, False)}[case]
+    assert (c["over"], c["degenerate"]) == expect
+    assert c["off_free"] == sum(int(margins[n, i] >= floor) for n, i in where)
+    assert c["off_free"] == {"beyond_margin": 3, "off_free_in_a_free_print": 1}.get(case, 0)
+    if case == "beyond_margin":
+        assert verdicts[0] == (f"{c['over']} prints differ beyond margin tolerance "
+                               f"(total diff bits {c['differing_bits']}, "
+                               f"free bits {c['free_bits']})")
+    elif case == "degenerate":
+        assert re.fullmatch(r"margin audit degenerate: (\d+) free bits", verdicts[0]).group(1) \
+            == str(c["free_bits"])
+
+
+def test_oracle_prints_and_margins_equal_oracle(audit_track):
+    pcm, filters, want, margins = audit_track
+    got, got_margins = port_audit.oracle_prints_and_margins(pcm, filters, PortConfig(**SMALL))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_margins, margins)

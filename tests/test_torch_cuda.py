@@ -17,7 +17,8 @@ import torch
 from hpfw_tpu_torch import ChunkedExtractor, MatchServer, StreamingSession, api
 from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.filters import filters_from_jax
-from hpfw_tpu_torch.oracle import fix_eigenvector_signs
+from hpfw_tpu_torch import graft_entry
+from hpfw_tpu_torch.oracle import audit, fix_eigenvector_signs
 from hpfw_tpu_torch.io import synth
 from hpfw_tpu_torch.learn import pca
 from hpfw_tpu_torch.match import matcher
@@ -959,3 +960,82 @@ def test_synth_device_card_against_cpu(dev, kind):
     diff = got.cpu().numpy().astype(np.float64) - want
     assert np.abs(diff).max() < tol[0]
     assert np.sqrt(np.mean(diff ** 2) / np.mean(want.astype(np.float64) ** 2)) < tol[1]
+
+
+# -- the card's prints against the float64 oracle --
+
+@functools.cache
+def _audit_track(seconds: float):
+    """A synthetic track at the default config, the filters, and the
+    oracle's prints and margins of it."""
+    cfg = HpfwConfig()
+    pcm = synth.synth_track(int(seconds) + 300, seconds, cfg)
+    filters = _filters(cfg)
+    return pcm, filters, audit.oracle_prints_and_margins(pcm, filters, cfg)
+
+
+@pytest.mark.parametrize("path", ["kernels", "plain"])
+@pytest.mark.parametrize("seconds", [8.0, 15.0, 30.0])
+def test_prints_pass_oracle_margin_audit(dev, seconds, path, monkeypatch):
+    """api.fingerprint on the card at HpfwConfig(), through K1 -> K2 or
+    through the plain versions on the card: every print within the float64
+    oracle's margin audit."""
+    cfg = HpfwConfig()
+    pcm, filters, (want, margins) = _audit_track(seconds)
+    if path == "plain":
+        monkeypatch.setattr(frontend, "cqt_from_frames", frontend.cqt_from_frames_ref)
+        monkeypatch.setattr(fp_ops, "fingerprint_from_spec", fp_ops.fingerprint_from_spec_ref)
+    _build.reset_launch_counts()
+    got = api.fingerprint(pcm, filters, cfg, device=dev)
+    launched = (_build.LAUNCHES["cqt"], _build.LAUNCHES["fingerprint"])
+    assert launched == ((1, 1) if path == "kernels" else (0, 0))
+    assert got.shape == want.shape == (cfg.n_hashprints(len(pcm)), 2)
+    audit.assert_bits_match_with_margin_audit(got, want, margins)
+    assert audit.margin_audit_counts(got, want, margins)["off_free"] == 0
+
+
+def test_entry_on_card_launches_k1_k2_and_passes_audit(dev):
+    forward, (pcm, filters) = graft_entry.entry()
+    assert pcm.device.type == filters.device.type == "cuda"
+    _build.reset_launch_counts()
+    out = forward(pcm, filters)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["cqt"], _build.LAUNCHES["fingerprint"]) == (1, 1)
+    assert out.dtype == torch.int32 and tuple(out.shape) == (380, 2)
+    want, margins = audit.oracle_prints_and_margins(pcm.cpu().numpy(), filters.cpu().numpy(),
+                                                    HpfwConfig())
+    cpu_forward, cpu_args = graft_entry.entry(device="cpu")
+    for got in (out.cpu().numpy(), cpu_forward(*cpu_args).numpy()):
+        got = got.view(np.uint32)
+        audit.assert_bits_match_with_margin_audit(got, want, margins)
+        assert audit.margin_audit_counts(got, want, margins)["off_free"] == 0
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_warmup_over_logical_shards(dev, d, tmp_path):
+    """warmup() over d logical shards of the card runs K4 and K5 in every
+    shard for each length and batch size, and leaves the answers as they
+    were on a DB that was never warmed."""
+    cfg = HpfwConfig.catalog_scale(db_downsample=8, coarse_prefilter=64)
+    rng = np.random.default_rng(11)
+    t, l, n = 61, 400, 96
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32),
+                           [str(i) for i in range(t)], prints, np.full(t, l, np.int32),
+                           device=dev)
+    qs = np.stack([prints[i, o:o + n] for i, o in ((3, 5), (40, 133), (60, 250))])
+    cold = TwoStageDB(db, mesh=meshlib.Mesh([dev] * d))
+    warm = TwoStageDB(db, mesh=meshlib.Mesh([dev] * d))
+    _build.reset_launch_counts()
+    warm.warmup([n, 2 * n], batch_sizes=(1, 3), pool=64)
+    # Per length: one dispatch and two batches, each a pass 1, a rescan and
+    # a fine rescan in every shard.
+    assert all(_build.LAUNCHES[k] == 2 * 3 * d
+               for k in ("coarse_scan_batch", "coarse_rescan", "fine_rescan")), _build.LAUNCHES
+    for q in qs:
+        _same(warm.match(q, top_k=10, pool=64), cold.match(q, top_k=10, pool=64))
+    for a, b in zip(warm.match_batch(qs, top_k=10, pool=64),
+                    cold.match_batch(qs, top_k=10, pool=64)):
+        _same(a, b)
+    assert warm.bundle_compile_cache(str(tmp_path), [n]) == 0
+    assert not any(tmp_path.iterdir())

@@ -489,3 +489,125 @@ def test_mesh_size_mismatch_raises_in_both(data, tmp_path):
             TwoStageDB.load(path, mesh=pmesh, device="cpu")
         with pytest.raises(ValueError, match="cache was built for mesh size"):
             jax_scaled.TwoStageDB.load(path, mesh=jmesh, pallas_interpret=True)
+
+
+# -- the serving warm-up, keep_host and mmap: the reference's signatures --
+
+def _answers(ts, qs, **kw):
+    return [ts.match(q, top_k=5, **kw) for q in qs] + ts.match_batch(qs, top_k=5, **kw)
+
+
+def _files(path):
+    return {f.name: f.read_bytes() for f in sorted(path.iterdir())}
+
+
+def _port_only(data, name, mesh=None, **extra):
+    """The port's TwoStageDB of a configuration (no reference built)."""
+    _, p, kw = _pair(data, "phases_1")
+    pcfg = _cfgs(name)[1]
+    pdb = api.FingerprintDB(pcfg, p.db.filters, p.db.track_ids, p.db.prints, p.db.lengths,
+                            device="cpu")
+    return TwoStageDB(pdb, stride=STRIDE, mesh=mesh, **CONFIGS[name][0], **extra), \
+        CONFIGS[name][1]
+
+
+@pytest.mark.parametrize("mesh", [None, 2], ids=["one_device", "mesh2"])
+@pytest.mark.parametrize("name", ["phases_1", "catalog_scale"])
+def test_warmup_leaves_answers_unchanged(data, name, mesh):
+    """warmup() leaves match and match_batch as they were, on one device
+    and over 2 logical shards."""
+    p, kw = _port_only(data, name, Mesh(["cpu"] * mesh) if mesh else None)
+    qs = data[2][:2]
+    before = _answers(p, qs, **kw)
+    assert p.warmup([NQ], batch_sizes=(2,), pool=kw["pool"]) is None
+    for got, want in zip(_answers(p, qs, **kw), before):
+        _same(got, want)
+
+
+def test_bundle_compile_cache_writes_nothing(data, tmp_path):
+    _, p, kw = _pair(data, "phases_1")
+    p.save(str(tmp_path / "c"))
+    saved = _files(tmp_path / "c")
+    assert p.bundle_compile_cache(str(tmp_path / "c"), [NQ], batch_sizes=(2,),
+                                  pool=kw["pool"]) == 0
+    assert _files(tmp_path / "c") == saved
+
+
+@pytest.mark.parametrize("name,mesh", [("prefilter_pack4", None), ("phases_1", 2)],
+                         ids=["pack4_one_device", "phases_1_mesh2"])
+def test_keep_host_save_byte_identical(data, tmp_path, name, mesh):
+    """A keep_host=True DB's save() writes the same bytes as a plain DB's,
+    and the cache answers as the source does: on one device loaded by both
+    packages, over logical shards by the port (the mesh cache tests above
+    load the port's mesh caches in the reference)."""
+    pmesh = Mesh(["cpu"] * mesh) if mesh else None
+    plain, kw = _port_only(data, name, pmesh)
+    kept, _ = _port_only(data, name, pmesh, keep_host=True)
+    kw = dict(kw, phases=plain.query_phases, prefilter=plain.prefilter,
+              phases1=plain.prefilter_phases)
+    kept.save(str(tmp_path / "kept"))
+    plain.save(str(tmp_path / "plain"))
+    assert _files(tmp_path / "kept") == _files(tmp_path / "plain")
+    q = data[2][:1]
+    want = plain.match(q[0], top_k=5, **kw)
+    port = TwoStageDB.load(str(tmp_path / "kept"), mesh=pmesh, device=None if mesh else "cpu")
+    _same(port.match(q[0], top_k=5, **kw), want)
+    if mesh is None:
+        ref = jax_scaled.TwoStageDB.load(str(tmp_path / "kept"), pallas_interpret=True)
+        _same(ref.match(q[0], top_k=5, **kw), want)
+
+
+def test_load_without_mmap_equals_load(data, tmp_path):
+    _, p, kw = _pair(data, "prefilter_pack4")
+    kw = dict(kw, phases=p.query_phases, prefilter=p.prefilter, phases1=p.prefilter_phases)
+    p.save(str(tmp_path / "c"))
+    mapped = TwoStageDB.load(str(tmp_path / "c"), device="cpu")
+    whole = TwoStageDB.load(str(tmp_path / "c"), mmap=False, device="cpu")
+    for a, b in zip(mapped.shards[0], whole.shards[0]):
+        assert torch.equal(a, b)
+    for got, want in zip(_answers(whole, data[2][:2], **kw), _answers(p, data[2][:2], **kw)):
+        _same(got, want)
+
+
+@pytest.fixture(scope="module")
+def persist_db(cfg):
+    """tests/test_persist.py's small_db, built by the port on the CPU."""
+    from hpfw_tpu_torch.io import synth
+    from hpfw_tpu_torch.oracle import fix_eigenvector_signs
+
+    pcfg = PortConfig.from_json(cfg.to_json())
+    tracks = synth.synth_catalog(14, 4.0, pcfg)
+    rng = np.random.default_rng(0)
+    filters = fix_eigenvector_signs(rng.standard_normal((pcfg.context_dim, pcfg.n_filters)) /
+                                    np.sqrt(pcfg.context_dim)).astype(np.float32)
+    db = api.build_db(tracks, filters, pcfg, device="cpu")
+    q = synth.make_query(tracks[9], 0.8, 2.0, pcfg, noise_db=-15.0, seed=2)
+    return db, api.fingerprint(q, filters, pcfg, device="cpu")
+
+
+@pytest.mark.parametrize("call", ["save_load_xla_path", "save_load_pallas_planes",
+                                  "save_load_sharded", "without_keep_host_mmap_false",
+                                  "warmup_serving_shapes"])
+def test_reference_persist_calls_run_on_port(persist_db, tmp_path, call):
+    """tests/test_persist.py's calls, with the TPU route selectors
+    (use_pallas_fine, pallas_interpret) dropped and the CPU named, give its
+    results on the port."""
+    db, qfp = persist_db
+    cache = str(tmp_path / "cache")
+    mesh = Mesh(["cpu"] * 8) if call == "save_load_sharded" else None
+    if call == "warmup_serving_shapes":
+        ts = TwoStageDB(db, stride=4)
+        ts.warmup([qfp.shape[0]], batch_sizes=(2,), pool=14)
+        ids, s, o = ts.match(qfp, top_k=1, pool=14)
+        assert ids[0] == "9"
+        return
+    keep = call != "without_keep_host_mmap_false"
+    ts = TwoStageDB(db, stride=4, mesh=mesh, keep_host=keep)
+    ts.save(cache)
+    loaded = TwoStageDB.load(cache, mesh=mesh, mmap=keep,
+                             device=None if mesh else "cpu")
+    assert loaded.stride == 4 and loaded.n_real == 14
+    assert loaded.db.cfg == db.cfg and loaded.db.track_ids == db.track_ids
+    want = ts.match(qfp, top_k=5, pool=14)
+    _same(loaded.match(qfp, top_k=5, pool=14), want)
+    assert want[0][0] == "9"
