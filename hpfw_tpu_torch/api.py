@@ -32,6 +32,7 @@ from .match.align import structure_evidence
 from .match.stretch import hypothesis_grid, pitch_grid, stretch_grid
 from .ops import fingerprint as fp_ops
 from .ops import frontend, fused
+from .utils.profiling import trace
 
 
 def default_device() -> torch.device:
@@ -179,7 +180,8 @@ def fingerprint_stream(
     batch i computes on the current stream (the compute stream waits for the
     upload's event), and each result comes back by a non-blocking copy into
     pinned memory: the generator waits only for the batch it yields. On the
-    CPU the same code runs with no streams.
+    CPU the same code runs with no streams. Each batch's staging copy and
+    queued upload is an `extract.upload` span (utils/profiling.py).
     """
     dev = _resolve_device(device, filters)
     filt = _filters_on(filters, cfg, dev)
@@ -189,13 +191,14 @@ def fingerprint_stream(
         host = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
         if host.dim() != 2:
             raise ValueError(f"expected (B, S) PCM batches, got shape {tuple(host.shape)}")
-        pcms, compute = host, None
-        if copy_stream is not None:
-            compute = torch.cuda.current_stream(dev)
-            with torch.cuda.stream(copy_stream):
-                pcms = _upload(host, dev)
-            compute.wait_stream(copy_stream)
-            pcms.record_stream(compute)      # read on compute, made on the copy stream
+        with trace("extract.upload"):
+            pcms, compute = host, None
+            if copy_stream is not None:
+                compute = torch.cuda.current_stream(dev)
+                with torch.cuda.stream(copy_stream):
+                    pcms = _upload(host, dev)
+                compute.wait_stream(copy_stream)
+                pcms.record_stream(compute)  # read on compute, made on the copy stream
         pending.append(_to_host(fingerprint_batch_device(pcms, filt, cfg), compute))
         if len(pending) >= 2:
             yield _take(*pending.pop(0))

@@ -50,6 +50,7 @@ from ..ops.coarse_scan import (coarse_rescan, coarse_scan, coarse_scan_batch,
                                pack_coarse_nibbles)
 from ..ops.fine import fine_rescan_batch, plane_pad
 from ..parallel.mesh import Mesh, gather_blocks, split_tracks
+from ..utils.profiling import trace
 from .stretch import print_variants, stretch_grid
 
 # Elements of the unpacked (tracks x prints x 64) intermediate per chunk of
@@ -653,7 +654,8 @@ class TwoStageDB:
                     stretch_step: float | None = None, calibrate: bool = False):
         """Match B equal-length queries, (B, N, 2) uint32 or (B, V, N, 2)
         variant stacks, in one coarse sweep. Returns a list of B (track_ids,
-        scores, offsets) tuples, each what match() returns for that query."""
+        scores, offsets) tuples, each what match() returns for that query.
+        The host ranking is a `match.rank` span (utils/profiling.py)."""
         cfg = self.db.cfg
         top_k = top_k if top_k is not None else cfg.top_k
         qh = np.asarray(query_batch, dtype=np.uint32)
@@ -670,21 +672,22 @@ class TwoStageDB:
         out = self.dispatch_batch(_to_tensor_prints(qh, self.device), pool=pool,
                                   fine_window=fine_window, phases=phases,
                                   prefilter=prefilter, phases1=phases1).cpu().numpy()
-        cal = None
-        if n_var > 1:
-            # (B*V, 3, K) -> (B, 3, V*K): a query's variant rows rank together.
-            out = out.reshape(-1, n_var, 3, out.shape[-1])
-            if calibrate:
-                cal = out[:, :, 0].astype(np.float64)
-                cal -= np.median(cal, axis=-1, keepdims=True)
-                cal = cal.reshape(cal.shape[0], -1)
-            out = np.moveaxis(out, 1, 2).reshape(out.shape[0], 3, -1)
-        results = []
-        for b in range(out.shape[0]):
-            scores, idx, offs = out[b]
-            if cal is not None:
-                scores = cal[b]
-            real = idx < self.n_real
-            scores, idx, offs = scores[real], idx[real], offs[real]
-            results.append(_rank_dedup(scores, idx, offs, self.db.track_ids, top_k))
-        return results
+        with trace("match.rank"):
+            cal = None
+            if n_var > 1:
+                # (B*V, 3, K) -> (B, 3, V*K): a query's variant rows rank together.
+                out = out.reshape(-1, n_var, 3, out.shape[-1])
+                if calibrate:
+                    cal = out[:, :, 0].astype(np.float64)
+                    cal -= np.median(cal, axis=-1, keepdims=True)
+                    cal = cal.reshape(cal.shape[0], -1)
+                out = np.moveaxis(out, 1, 2).reshape(out.shape[0], 3, -1)
+            results = []
+            for b in range(out.shape[0]):
+                scores, idx, offs = out[b]
+                if cal is not None:
+                    scores = cal[b]
+                real = idx < self.n_real
+                scores, idx, offs = scores[real], idx[real], offs[real]
+                results.append(_rank_dedup(scores, idx, offs, self.db.track_ids, top_k))
+            return results

@@ -45,6 +45,8 @@ from . import api
 from .match.scaled import _rank_dedup
 from .ops import fine, frontend
 from .ops import fingerprint as fp_ops
+from .utils import profiling
+from .utils.profiling import trace
 
 
 class ServerSaturated(RuntimeError):
@@ -109,6 +111,28 @@ def _drain(q: queue.Queue) -> None:
             break
         if item is not None:
             _fail([item[-1]], RuntimeError("server closed"))
+
+
+def _admitted(name: str, batch) -> int:
+    """Record each request's wait from its stamp (an item's second element)
+    to now, the close of its batch, as a span `name` whose parent is the
+    batch (its dispatch span's id, returned) and whose `req` is the
+    request's id (an item's third element)."""
+    t1, bid = time.perf_counter_ns(), profiling.new_id()
+    for item in batch:
+        profiling.record(name, item[1], t1, parent=bid, req=item[2])
+    return bid
+
+
+def _request_done(t0: int, req: int):
+    """A future's callback that records the request's life, from its submit
+    stamp t0 to its answer or failure, as a `serve.request` span."""
+    def done(fut: Future) -> None:
+        t1 = time.perf_counter_ns()
+        res = None if fut.cancelled() or fut.exception() is not None else fut.result()
+        profiling.record("serve.request", t0, t1, req=req,
+                         escalated=bool(res[3]) if res is not None else None)
+    return done
 
 
 def _new_streams(ts) -> list:
@@ -308,6 +332,18 @@ class EscalatingMatchServer:
     counts submitted, confident, structure_kept, escalated, overridden and
     shed queries. Batches pad to powers of 4 (max_batch for the rigid class,
     scan_batch, default max(1, 70 // V), for the scan class).
+
+    Spans (utils/profiling.py; a request's id is its serve.submit span's,
+    on the `req` attribute of its other spans; a batch's id is its
+    serve.dispatch span's, the `parent` of its other spans):
+      - serve.submit: the body of submit, on the caller's thread;
+      - serve.admit / serve.scan_admit: a request's wait from submit / from
+        its queueing for the scan to the close of its rigid / scan batch;
+      - serve.extract, serve.dispatch (rows: queries, padded: bucket rows)
+        and serve.rank, a batch each, with cls "rigid" or "scan": K1/K2 or
+        the variants' K2, the match queued with its copy back, and the
+        ranking once the result has landed;
+      - serve.request: submit to the answer or failure, `escalated`.
     """
 
     def __init__(self, ts, filters, query_samples: int, *,
@@ -391,16 +427,21 @@ class EscalatingMatchServer:
             fut.set_exception(RuntimeError("server closed"))
             return fut
         wait = self.submit_timeout if timeout_ms is None else timeout_ms / 1e3
-        try:
-            if wait > 0:
-                self._q.put((p, fut), timeout=wait)
-            else:
-                self._q.put_nowait((p, fut))
-            self._count("submitted")
-        except queue.Full:
-            self._count("shed")
-            fut.set_exception(ServerSaturated(
-                f"submit queue full ({self._q.maxsize} pending)"))
+        with trace("serve.submit") as span:
+            # The item carries the submit stamp and the request's id (this
+            # span's); its future stays last (_drain).
+            item = (p, span.t0, span.sid, fut)
+            fut.add_done_callback(_request_done(span.t0, span.sid))
+            try:
+                if wait > 0:
+                    self._q.put(item, timeout=wait)
+                else:
+                    self._q.put_nowait(item)
+                self._count("submitted")
+            except queue.Full:
+                self._count("shed")
+                fut.set_exception(ServerSaturated(
+                    f"submit queue full ({self._q.maxsize} pending)"))
         return fut
 
     def match(self, pcm: np.ndarray):
@@ -426,7 +467,7 @@ class EscalatingMatchServer:
             b = 1
             while True:
                 bb = _bucket(b, self.scan_batch)
-                self._scan([spec1] * bb).cpu()
+                self._scan_match(self._scan_stack([spec1] * bb)).cpu()
                 if bb >= self.scan_batch:
                     break
                 b *= 4
@@ -458,14 +499,15 @@ class EscalatingMatchServer:
                               for s in specs])
         return specs, prints
 
-    def _scan(self, specs) -> torch.Tensor:
-        """Saved spectra -> (B * V, 3, K): their hypotheses' stack, matched.
+    def _scan_stack(self, specs) -> torch.Tensor:
+        """Saved spectra -> their hypotheses' (B * V, n_q, 2) print stack."""
+        return torch.cat([api.scan_from_spec(s, self._filters, self.cfg, self.hyps,
+                                             self.interp) for s in specs])
 
-        The stack goes through dispatch_batch in pieces of whole queries
-        that fit K5's queries a launch (one piece at the default
-        scan_batch); the pool is never shrunk."""
-        stack = torch.cat([api.scan_from_spec(s, self._filters, self.cfg, self.hyps,
-                                              self.interp) for s in specs])
+    def _scan_match(self, stack) -> torch.Tensor:
+        """A print stack -> (B * V, 3, K), through dispatch_batch in pieces of
+        whole queries that fit K5's queries a launch (one piece at the
+        default scan_batch); the pool is never shrunk."""
         step = fine.MAX_QUERIES // len(self.hyps) * len(self.hyps)
         return torch.cat([self.ts.dispatch_batch(stack[i:i + step], pool=self.pool)
                           for i in range(0, stack.shape[0], step)])
@@ -477,43 +519,54 @@ class EscalatingMatchServer:
                 batch = _collect(self._q, self.max_batch, self.max_wait)
                 if not batch:
                     continue
-                rows = [p for p, _ in batch]
+                bid = _admitted("serve.admit", batch)
+                rows = [p for p, _, _, _ in batch]
                 rows += [rows[-1]] * (_bucket(len(rows), self.max_batch) - len(rows))
-                futs = [f for _, f in batch]
+                futs = [f for _, _, _, f in batch]
                 if not _acquire(self._device_slots, self._stop):
                     _fail(futs, RuntimeError("server closed"))
                     break
                 try:
-                    specs, prints = self._extract(rows)
-                    out, ready = api._to_host(self.ts.dispatch_batch(prints, pool=self.pool),
-                                              self._rigid_streams[0])
+                    with trace("serve.extract", parent=bid, cls="rigid"):
+                        specs, prints = self._extract(rows)
+                    with trace("serve.dispatch", sid=bid, cls="rigid", rows=len(batch),
+                               padded=len(rows)):
+                        out, ready = api._to_host(
+                            self.ts.dispatch_batch(prints, pool=self.pool),
+                            self._rigid_streams[0])
                 except Exception as e:             # a failed launch fails its batch
                     self._device_slots.release()
                     _fail(futs, e)
                     continue
-                self._rank_pool.submit(self._finish_rigid, out, ready, specs, prints, futs)
+                self._rank_pool.submit(self._finish_rigid, out, ready, specs, prints,
+                                       [(r, f) for _, _, r, f in batch], bid)
         _drain(self._q)
 
-    def _finish_rigid(self, out, ready, specs, prints, futs):
+    def _finish_rigid(self, out, ready, specs, prints, items, bid):
         """Rank-worker side of a rigid batch: resolve the confident answers
-        first, then the structure gate, then queue the rest for the scan."""
+        first, then the structure gate, then queue the rest for the scan.
+        items: (request id, future) a query."""
         try:
             api._wait(ready)
             host = out.numpy()
         except Exception as e:                     # device failure: fail futures
             self._device_slots.release()
-            _fail(futs, e)
+            _fail([f for _, f in items], e)
             return
         self._device_slots.release()
+        with trace("serve.rank", parent=bid, cls="rigid"):
+            self._rank_rigid(host, specs, prints, items, ready)
+
+    def _rank_rigid(self, host, specs, prints, items, ready):
         unconfident = []
-        for b, fut in enumerate(futs):
+        for b, (req, fut) in enumerate(items):
             try:
                 ranked = self._rank(host[b])
                 if api.rigid_confident(ranked[1], self.n_q, **self.gate):
                     self._count("confident")
                     self._resolve(fut, ranked, False)
                 else:
-                    unconfident.append((b, ranked, fut))
+                    unconfident.append((b, ranked, req, fut))
             except Exception as e:
                 _fail([fut], e)
         if not unconfident:
@@ -521,8 +574,8 @@ class EscalatingMatchServer:
         qprints = None
         if self.structure_gate is not None:
             # The one copy of the batch's prints, for its unconfident rows.
-            qprints = api._to_numpy_prints(prints[[b for b, _, _ in unconfident]])
-        for j, (b, ranked, fut) in enumerate(unconfident):
+            qprints = api._to_numpy_prints(prints[[b for b, _, _, _ in unconfident]])
+        for j, (b, ranked, req, fut) in enumerate(unconfident):
             try:
                 if qprints is not None and len(ranked[0]) and self._structured(qprints[j],
                                                                                ranked):
@@ -530,7 +583,8 @@ class EscalatingMatchServer:
                     self._resolve(fut, ranked, False)
                 else:
                     self._count("escalated")
-                    self._scan_q.put((specs[b], ready, ranked, fut))
+                    self._scan_q.put((specs[b], time.perf_counter_ns(), req, ready, ranked,
+                                      fut))
             except Exception as e:
                 _fail([fut], e)
 
@@ -551,9 +605,10 @@ class EscalatingMatchServer:
                                  first_wait=self.scan_wait)
                 if not batch:
                     continue
-                specs = [s for s, _, _, _ in batch]
+                sid = _admitted("serve.scan_admit", batch)
+                specs = [s for s, _, _, _, _, _ in batch]
                 specs += [specs[-1]] * (_bucket(len(specs), self.scan_batch) - len(specs))
-                futs = [f for _, _, _, f in batch]
+                futs = [f for _, _, _, _, _, f in batch]
                 if not _acquire(self._device_slots, self._stop):
                     _fail(futs, RuntimeError("server closed"))
                     break
@@ -562,20 +617,24 @@ class EscalatingMatchServer:
                         # The spectra come from the rigid stream: wait for
                         # their batch's event, and keep their memory until
                         # the scan stream's work on them has run.
-                        for ev in {id(r): r for _, r, _, _ in batch}.values():
+                        for ev in {id(r): r for _, _, _, r, _, _ in batch}.values():
                             scan_stream.wait_event(ev)
                         for s in specs:
                             s.record_stream(scan_stream)
-                    out, ready = api._to_host(self._scan(specs), scan_stream)
+                    with trace("serve.extract", parent=sid, cls="scan"):
+                        stack = self._scan_stack(specs)
+                    with trace("serve.dispatch", sid=sid, cls="scan", rows=len(batch),
+                               padded=len(specs)):
+                        out, ready = api._to_host(self._scan_match(stack), scan_stream)
                 except Exception as e:             # a failed launch fails its batch
                     self._device_slots.release()
                     _fail(futs, e)
                     continue
                 self._rank_pool.submit(self._finish_scan, out, ready,
-                                       [(r, f) for _, _, r, f in batch])
+                                       [(k, f) for _, _, _, _, k, f in batch], sid)
         _drain(self._scan_q)
 
-    def _finish_scan(self, out, ready, items):
+    def _finish_scan(self, out, ready, items, sid):
         try:
             api._wait(ready)
             host = out.numpy()
@@ -584,6 +643,10 @@ class EscalatingMatchServer:
             _fail([f for _, f in items], e)
             return
         self._device_slots.release()
+        with trace("serve.rank", parent=sid, cls="scan"):
+            self._rank_scan(host, items)
+
+    def _rank_scan(self, host, items):
         v = len(self.hyps)
         # (B * V, 3, K) -> (B, 3, V * K): a query's hypothesis rows rank together.
         host = np.moveaxis(host.reshape(-1, v, 3, host.shape[-1]), 1, 2)

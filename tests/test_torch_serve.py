@@ -5,7 +5,7 @@ path in interpret mode): the three cases of tests/test_serve.py, the batch
 buckets, warmup, and a concurrent-submit stress test. EscalatingMatchServer
 is held against hpfw_tpu's EscalatingMatchServer on the same PCM (results,
 escalation flags, stats) and against the port's match_scan_escalating, with
-its buckets, refusals and load shedding."""
+its buckets, refusals, load shedding and spans."""
 
 import copy
 import dataclasses
@@ -27,6 +27,7 @@ from hpfw_tpu_torch.config import HpfwConfig
 from hpfw_tpu_torch.match.scaled import TwoStageDB
 from hpfw_tpu_torch.ops import fine
 from hpfw_tpu_torch.parallel.mesh import Mesh
+from hpfw_tpu_torch.utils import profiling
 from tests.test_tpu_pipeline import assert_bits_match_with_margin_audit
 
 
@@ -405,3 +406,46 @@ def test_escalating_server_on_mesh(escalating):
     assert [i for i, r in enumerate(got) if r[3]] == st["escalated"]
     assert stats["escalated"] == len(st["escalated"]) and stats["submitted"] == len(pcms)
     assert [r[0][0] for r in got] == ["3", "9", "5"]
+
+
+def test_escalating_server_spans(escalating):
+    """After warmup, each request makes one serve.submit, serve.admit and
+    serve.request, each escalated one a serve.scan_admit; each batch one
+    serve.extract, serve.dispatch and serve.rank of its class; a class's
+    dispatches carry its queries as rows."""
+    cfg2, filters, _, ts, pcms, _ = escalating
+    with EscalatingMatchServer(ts, filters, pcms.shape[1], max_batch=4, max_wait_ms=20.0,
+                               scan_batch=1, pool=16, top_k=2) as srv:
+        srv.warmup(pcms[0])
+        first = profiling.new_id()
+        got = [f.result(timeout=600) for f in [srv.submit(p) for p in pcms]]
+        stats = dict(srv.stats)
+    spans: dict = {}
+    for s in profiling.spans():
+        if s.sid > first and s.name.startswith("serve."):
+            spans.setdefault(s.name, []).append(s)
+    n = len(got)
+    submits = {s.sid: s for s in spans["serve.submit"]}
+    requests = {s.attrs["req"]: s for s in spans["serve.request"]}
+    admits = {s.attrs["req"]: s for s in spans["serve.admit"]}
+    assert len(submits) == len(requests) == len(admits) == n == len(spans["serve.admit"])
+    assert set(requests) == set(admits) == set(submits)
+    for req, r in requests.items():
+        a = admits[req]
+        assert submits[req].t0 == r.t0 == a.t0 <= a.t1 <= r.t1
+    escalated = {req for req, r in requests.items() if r.attrs["escalated"]}
+    assert len(escalated) == sum(r[3] for r in got) == stats["escalated"] > 0
+    scan_admits = spans["serve.scan_admit"]
+    assert len(scan_admits) == stats["escalated"]
+    assert {s.attrs["req"] for s in scan_admits} == escalated
+    assert all(admits[s.attrs["req"]].t1 <= s.t0 <= s.t1 <= requests[s.attrs["req"]].t1
+               for s in scan_admits)
+    dispatch = {s.sid: s for s in spans["serve.dispatch"]}
+    for cls, queries, waits in [("rigid", n, spans["serve.admit"]),
+                                ("scan", stats["escalated"], scan_admits)]:
+        mine = {sid: d for sid, d in dispatch.items() if d.attrs["cls"] == cls}
+        assert sum(d.attrs["rows"] for d in mine.values()) == queries
+        assert all(d.attrs["rows"] <= d.attrs["padded"] for d in mine.values())
+        assert {w.parent for w in waits} == set(mine)
+        for name in ("serve.extract", "serve.rank"):
+            assert sorted(s.parent for s in spans[name] if s.attrs["cls"] == cls) == sorted(mine)
