@@ -62,8 +62,9 @@ then, on the catalog_scale() catalog, whose rows also hold 16 synthetic
      identity row equals plain extraction and every variant's K2 prints are
      within K2's gate of the plain encoder; in an escalated match_batch every
      K4 and K5 call equals its plain version on the same inputs, and the
-     dispatch through the plain K4 and K5 gives the same results; scan
-     extraction and escalated match_batch times;
+     dispatch through the plain K4 and K5 gives the same results as an eager
+     call, a capture and a replay of its CUDA graph; scan extraction and
+     escalated match_batch times;
  20. known-artist mode at config 5's artist_eval sizes (6 artists x 8 tracks
      x 30 s): ArtistDB.build on the card, known- and unknown-artist matches
      of noisy excerpts, dense and scaled=True, each ranking its track first
@@ -75,11 +76,12 @@ then, on the catalog_scale() catalog, whose rows also hold 16 synthetic
      TwoStageDB with the catalog_scale() config plus stretch_span 0.03 and
      pitch_span_bins 1 (V = 21), fed a 30 s stream track played 2.9% fast
      and +0.5 semitone in 0.25 s chunks: it acquires, locks pitch +1 bin and
-     a tempo within a grid step of 1.03, tracks, and names the track; every
-     K2 call within K2's gate and every K4/K5 call equal to its plain
-     version; the same stream through the plain K1/K2/K4/K5 on the card
-     gives the same states and top tracks every feed, and the same window
-     top hit wherever the prints are equal; an in-tempo stream locks at
+     a tempo within a grid step of 1.03, tracks, and names the track, its
+     dispatches replaying CUDA graphs; every K2 call within K2's gate; the
+     same stream with eager dispatches, every K4/K5 call equal to its plain
+     version, and through the plain K1/K2/K4/K5 on the card gives the same
+     states and top tracks every feed, and the same window top hit wherever
+     the prints are equal; an in-tempo stream locks at
      (1.0, 0) and goes rigid-only; a 12 s rendition over phase 4's dense DB
      (K3 once a hypothesis while acquiring); match and step p50/p99 while
      acquiring and while tracking;
@@ -166,7 +168,9 @@ then the port's remaining surfaces at the default config:
 Each path (phases 4, 10, 14-33, 35, and 36's processes) runs with the launch
 counters set to 0 just before it and read just after; comparison and timing
 launches are not counted, and a plain-version run checks that K1 and K2 did
-not launch. Kernel times are CUDA events over launches queued behind a
+not launch. A run whose K3-K5 calls are held to their plain versions forces
+eager dispatches (a CUDA graph replays its kernels without calling them), so
+it is a pass of its own, outside the counted path. Kernel times are CUDA events over launches queued behind a
 spin kernel (cuda_ms). The last two lines are a JSON object of per-kernel
 results (time, plain and library time, bound) and {"ok": true, "device":
 {...}}.
@@ -368,6 +372,28 @@ def matcher_routes() -> list:
             (scaled, "fine_rescan_batch", "fine_rescan", fine.fine_rescan_ref)]
 
 
+def eager_dispatch():
+    """Every dispatch_batch meanwhile runs eager, calling the names that
+    matcher_routes() patches: a captured CUDA graph (match/graphs.py) would
+    replay its kernels without calling them. The main path replays graphs
+    from a shape's second call, so a run under this is a pass of its own,
+    outside start_path()/end_path()."""
+    from unittest import mock
+
+    from hpfw_tpu_torch.match import graphs
+    return mock.patch.object(graphs.DispatchGraphs, "run",
+                             lambda self, device, key, queries, fn: (fn(queries), False))
+
+
+def graphed_dispatches(first: int) -> tuple[int, int]:
+    """(graphed, all) of the match.dispatch spans (TwoStageDB.dispatch_batch
+    calls) opened since profiling.new_id() returned first."""
+    from hpfw_tpu_torch.utils import profiling
+    mine = [s.attrs["graphed"] for s in profiling.spans()
+            if s.name == "match.dispatch" and s.sid > first]
+    return sum(mine), len(mine)
+
+
 @contextlib.contextmanager
 def plain_matcher():
     """Route K3, K4 and K5 through their plain versions (on the card too).
@@ -378,6 +404,7 @@ def plain_matcher():
     routes = matcher_routes()
     before = [_build.LAUNCHES[counter] for _, _, counter, _ in routes]
     with contextlib.ExitStack() as stack:
+        stack.enter_context(eager_dispatch())
         for mod, attr, _, ref in routes:
             stack.enter_context(mock.patch.object(mod, attr, ref))
         yield
@@ -389,10 +416,12 @@ def plain_matcher():
 def matcher_held_to_plain(held: dict):
     """Record every K3, K4 and K5 call made meanwhile, then run each one's
     plain version on the same inputs: fails unless every output is equal.
-    held gets {launch counter: [the shape of each call's query input]}."""
+    held gets {launch counter: [the shape of each call's query input]}.
+    Dispatches run eager meanwhile (eager_dispatch())."""
     from unittest import mock
     calls = []
     with contextlib.ExitStack() as stack:
+        stack.enter_context(eager_dispatch())
         for mod, attr, counter, ref in matcher_routes():
             def spy(*args, _real=getattr(mod, attr), _counter=counter, _ref=ref, **kw):
                 out = _real(*args, **kw)
@@ -1412,6 +1441,7 @@ def run_renditions(ts, filters_np, stream_pcm, stream_rows) -> tuple:
     from hpfw_tpu_torch.io import synth
     from hpfw_tpu_torch.ops import frontend
     from hpfw_tpu_torch.ops import fingerprint as fp_ops
+    from hpfw_tpu_torch.utils import profiling
 
     cfg, dev = ts.db.cfg, ts.device
     n_s = int(SCAN_SECONDS * cfg.sample_rate)
@@ -1525,6 +1555,14 @@ def run_renditions(ts, filters_np, stream_pcm, stream_rows) -> tuple:
         esc_plain = ts.match_batch(esc_np, top_k=k_int)
     check(same_results(esc, esc_plain),
           "the escalated match_batch through the plain K4 and K5 differs")
+    # The same dispatch as the main path runs it: eager, then captured and
+    # replayed as a CUDA graph, then replayed; each equal to the plain run.
+    first = profiling.new_id()
+    esc_graphed = [ts.match_batch(esc_np, top_k=k_int) for _ in range(3)]
+    g_esc = graphed_dispatches(first)
+    check(g_esc[0] >= 2 and all(same_results(r, esc_plain) for r in esc_graphed),
+          f"the escalated match_batch replayed {g_esc} graphed of all dispatches, or a "
+          "replay differs from the plain K4 and K5")
 
     rigid_ms = host_ms(lambda: ts.match_batch(rigid_np, top_k=k_int, stretch_span=0.0))
     esc_ms = host_ms(lambda: ts.match_batch(esc_np, top_k=k_int))
@@ -1541,7 +1579,9 @@ def run_renditions(ts, filters_np, stream_pcm, stream_rows) -> tuple:
     log(f"phase 19 escalated match_batch of {sbatch} x {v} variant rows: K4 and K5 equal to "
         f"their plain versions on the path's inputs ("
         + ", ".join(f"{k} on {sorted(set(s))}" for k, s in held.items())
-        + "); the dispatch through the plain K4 and K5 gives the same results")
+        + "); the dispatch through the plain K4 and K5 gives the same results, and so do "
+        f"an eager call, a capture and a replay of its CUDA graph ({g_esc[0]} of {g_esc[1]} "
+        "dispatches graphed)")
     log(f"phase 19 times: scan extraction a query (K1, the gathers, {v} x K2) {scan_ms:.4f} "
         f"ms by CUDA events, {scan_host:.3f} ms by host clock; K1 alone {k1_ms:.4f} ms, {v} x "
         f"K2 alone {k2_ms:.4f} ms; match_batch (host clock, median of 5): rigid {len(pcms)} "
@@ -1709,6 +1749,7 @@ def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> dict:
 
     from hpfw_tpu_torch import StreamingSession, api
     from hpfw_tpu_torch.ops import fingerprint as fp_ops
+    from hpfw_tpu_torch.utils import profiling
     from unittest import mock
 
     cfg = dataclasses.replace(ts.db.cfg, stretch_span=SCAN_SPAN, pitch_span_bins=SCAN_PITCH_BINS)
@@ -1719,8 +1760,8 @@ def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> dict:
     live = rendition(stream_pcm[i], 2.0, SESSION_SECONDS, cfg, seed=300)
     kw = dict(query_prints=QUERY_PRINTS, chunk_prints=CHUNK_PRINTS)
 
-    # The kernels, every K2 call recorded and every K4/K5 call held to its
-    # plain version on the same inputs.
+    # The main path, every K2 call recorded; its dispatches replay CUDA
+    # graphs from a shape's second call.
     k2_calls, held = [], {}
     real_k2 = fp_ops.fingerprint_from_spec
 
@@ -1731,12 +1772,14 @@ def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> dict:
 
     sess = StreamingSession(ts, filters_np, cfg, **kw)
     start_path()
+    first = profiling.new_id()
     t0 = time.perf_counter()
-    with mock.patch.object(fp_ops, "fingerprint_from_spec", k2_spy), \
-            matcher_held_to_plain(held):
+    with mock.patch.object(fp_ops, "fingerprint_from_spec", k2_spy):
         trace = drive_session(sess, live, chunk)
     run_s = time.perf_counter() - t0
     counts = end_path()
+    graphed = graphed_dispatches(first)
+    check(graphed[0] > 0, f"rendition session: {graphed[0]} of {graphed[1]} dispatches graphed")
     worst = 0
     for spec, filters, c, out in k2_calls:
         bits = differing_bits(out, fp_ops.fingerprint_from_spec_ref(spec, filters, c))
@@ -1758,23 +1801,36 @@ def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> dict:
                                         "coarse_rescan", "fine_rescan")),
           f"rendition session launches {counts}: want K1, K2 and the packed matcher's kernels")
 
+    def same_as(other, route: str) -> int:
+        """Checks that other has trace's states and top tracks on every feed,
+        and its answers where the prints are equal: how many those are."""
+        same_prints = 0
+        check(len(other) == len(trace), f"{route}: {len(other)} feeds, want {len(trace)}")
+        for a, b in zip(trace, other):
+            check(a["state"] == b["state"] and a["matched"] == b["matched"]
+                  and (a["best"] is None) == (b["best"] is None)
+                  and (a["best"] is None or a["best"].track_id == b["best"].track_id),
+                  f"{route} diverges: {a['state']} {a['best']} vs {b['state']} {b['best']}")
+            if a["matched"] and np.array_equal(a["window"], b["window"]) and (
+                    (a["stack"] is None and b["stack"] is None)
+                    or (a["stack"] is not None and b["stack"] is not None
+                        and np.array_equal(a["stack"], b["stack"]))):
+                same_prints += 1
+                check(a["last"] == b["last"],
+                      f"{route}, equal prints, different answers: {a['last']} vs {b['last']}")
+        return same_prints
+
+    # The same stream in a session of its own, its dispatches eager and every
+    # K4/K5 call held to its plain version on the same inputs.
+    with matcher_held_to_plain(held):
+        eager = drive_session(StreamingSession(ts, filters_np, cfg, **kw), live, chunk)
+    same_eager = same_as(eager, "the eager route")
+
     # The same stream through the plain K1/K2/K4/K5 on the card.
     plain_sess = StreamingSession(ts, filters_np, cfg, **kw)
     with plain_versions(), plain_matcher():
         plain = drive_session(plain_sess, live, chunk)
-    same_prints = 0
-    for a, b in zip(trace, plain):
-        check(a["state"] == b["state"] and a["matched"] == b["matched"]
-              and (a["best"] is None) == (b["best"] is None)
-              and (a["best"] is None or a["best"].track_id == b["best"].track_id),
-              f"plain route diverges: {a['state']} {a['best']} vs {b['state']} {b['best']}")
-        if a["matched"] and np.array_equal(a["window"], b["window"]) and (
-                (a["stack"] is None and b["stack"] is None)
-                or (a["stack"] is not None and b["stack"] is not None
-                    and np.array_equal(a["stack"], b["stack"]))):
-            same_prints += 1
-            check(a["last"] == b["last"],
-                  f"equal prints, different answers: {a['last']} vs {b['last']}")
+    same_prints = same_as(plain, "the plain route")
     n_matches = sum(r["matched"] for r in trace)
     log(f"phase 21 live scan: {SESSION_SECONDS:.0f} s rendition (+{RENDITION_SEMITONES} st, "
         f"2.9% fast) of track {want} in {LIVE_CHUNK_S} s chunks, V = {v}: {n_matches} "
@@ -1782,12 +1838,15 @@ def run_live_scan(ts, filters_np, stream_pcm, stream_rows, dense) -> dict:
         f"locked at {lock[1:]}, ends at ({sess.tempo}, {sess.pitch}) -> {best.track_id} score "
         f"{best.score} offset {best.offset} confidence {best.confidence:.3f}; state path "
         f"{path}; {run_s:.2f} s")
-    log(f"phase 21 live scan times: {session_times(trace)}; launches {counts}")
+    log(f"phase 21 live scan times: {session_times(trace)}; launches {counts}; "
+        f"{graphed[0]} of {graphed[1]} dispatches replayed a CUDA graph")
     log(f"phase 21 live scan through the plain K1/K2/K4/K5: the same states and top tracks "
         f"on all {len(trace)} feeds, the same scores and offsets on the {same_prints} of "
         f"{n_matches} matches whose prints are equal; {len(k2_calls)} K2 calls within K2's "
-        f"gate (worst {worst} bits); K4/K5 equal to their plain versions on every call ("
-        + ", ".join(f"{k} x {len(sh)}" for k, sh in held.items()) + ")")
+        f"gate (worst {worst} bits); with eager dispatches the same states and top tracks, "
+        f"the same answers on {same_eager} of {n_matches}, and K4/K5 equal to their plain "
+        f"versions on every call (" + ", ".join(f"{k} x {len(sh)}" for k, sh in held.items())
+        + ")")
 
     # In tempo: locks at (1.0, 0) and then matches rigid only.
     sess = StreamingSession(ts, filters_np, cfg, **kw)
@@ -2522,7 +2581,7 @@ def run_cli(dev: torch.device) -> None:
         ts_scaled = TwoStageDB(db)
         ts_cache = TwoStageDB.load(cache, device=dev)
         held: dict = {}
-        for k, (qp, truth) in enumerate(query_of.items()):
+        for qp, truth in query_of.items():
             qfp = api.fingerprint(wav.load_wav(qp, cfg)[0], filters, cfg, device=dev)
             runs = [(["match", qp, "--db", db_npz], api.match(qfp, db, top_k=5)),
                     (["match", qp, "--db", db_npz, "--scaled"],
@@ -2530,16 +2589,10 @@ def run_cli(dev: torch.device) -> None:
                     (["match", qp, "--cache", cache], ts_cache.match(qfp, top_k=5))]
             for argv, answer in runs:
                 key = " ".join(a for a in argv if a.startswith("--") and a != "--db")
-                if k == 0 and "--scaled" in argv:
-                    with matcher_held_to_plain(held):
-                        rows = ranked_lines(cli_run(argv, times, "match " + key))
-                else:
-                    rows = ranked_lines(cli_run(argv, times, "match " + key))
+                rows = ranked_lines(cli_run(argv, times, "match " + key))
                 check(rows and rows[0][0] == truth and same_top(rows, *answer),
                       f"cli {' '.join(argv[:1] + argv[2:])} on {Path(qp).name}: {rows[:2]} "
                       f"vs the API's {answer[0][:2]}, truth {truth}")
-        check(set(held) == {"coarse_scan", "fine_rescan"},
-              f"cli match --scaled: K4/K5 calls held to their plain versions {held}")
         out = cli_run(["stream", paths[INGEST_QUERY], "--db", db_npz], times)
         check(f"final: {paths[INGEST_QUERY]} " in out, f"cli stream:\n{out}")
         out = cli_run(["pool", *paths[:CLI_POOL], "--db", db_npz], times)
@@ -2559,6 +2612,14 @@ def run_cli(dev: torch.device) -> None:
                                for lb, s, o in zip(labels, answer[1], answer[2])],
                   f"cli match-artist {extra}: {rows[:2]}, want {a_truth} first as the API")
         counts = end_path()
+        # One `match --scaled` once more, in a pass of its own: its dispatches
+        # eager and every K4/K5 call held to its plain version.
+        qp, truth = next(iter(query_of.items()))
+        with matcher_held_to_plain(held):
+            rows = ranked_lines(cli_run(["match", qp, "--db", db_npz, "--scaled"], {}))
+        check(rows and rows[0][0] == truth and set(held) == {"coarse_scan", "fine_rescan"},
+              f"cli match --scaled held to the plain K4/K5: {rows[:2]}, truth {truth}, "
+              f"held {held}")
     for k in ("cqt", "fingerprint", "score_tracks", "coarse_scan", "coarse_scan_batch",
               "coarse_rescan", "fine_rescan"):
         check(counts.get(k, 0) > 0, f"phase 31: {k} never launched: {counts}")

@@ -51,6 +51,7 @@ from ..ops.coarse_scan import (coarse_rescan, coarse_scan, coarse_scan_batch,
 from ..ops.fine import fine_rescan_batch, plane_pad
 from ..parallel.mesh import Mesh, gather_blocks, split_tracks
 from ..utils.profiling import trace
+from .graphs import DispatchGraphs
 from .stretch import print_variants, stretch_grid
 
 # Elements of the unpacked (tracks x prints x 64) intermediate per chunk of
@@ -348,10 +349,22 @@ class TwoStageDB:
 
     def _set_shards(self, shards: list[Shard]) -> None:
         """Hold the parts; on one device also as prints, lengths, db_c and
-        db_c1 (None under a mesh)."""
+        db_c1 (None under a mesh). A dispatch's CUDA graph holds the parts'
+        addresses, so any graphs go."""
         self.shards = shards
         (self.prints, self.lengths, self.db_c, self.db_c1) = (
             shards[0] if self.mesh is None else (None,) * 4)
+        self._graphs = DispatchGraphs()
+
+    @property
+    def _graphed(self) -> bool:
+        """Whether dispatch_batch replays CUDA graphs (match/graphs.py): on
+        one card."""
+        return self.mesh is None and self.device.type == "cuda"
+
+    def _drop_graphs(self, streams) -> None:
+        """Drop the dispatch graphs of these streams (a closing server's)."""
+        self._graphs.drop({s.cuda_stream for s in streams if s is not None})
 
     @property
     def devices(self) -> list[torch.device]:
@@ -538,23 +551,41 @@ class TwoStageDB:
         index, offsets] tensor. Under a mesh, every shard's match is queued
         (each on its own device, the prefilter capped at the shard's tracks)
         before the shards' (B, 3, K_s) blocks are gathered along K in shard
-        order."""
+        order.
+
+        On one card the match replays as a CUDA graph (match/graphs.py): the
+        second call of a shape and knobs on a stream captures it, and later
+        calls replay it, with the same results. Each call is a
+        `match.dispatch` span whose `graphed` says whether a graph ran."""
         cfg = self.db.cfg
         pool = pool if pool is not None else cfg.fine_candidates
         fw = fine_window if fine_window is not None else self.stride
         ph = phases if phases is not None else self.query_phases
-        blocks = []
-        for i, sh in enumerate(self.shards):
-            t_shard = sh.db_c.shape[0]
-            pf, p1, c1 = self._twopass_args(ph, prefilter, phases1, t_shard)
-            blocks.append(_two_stage(
-                queries_dev.to(sh.db_c.device), sh.prints, sh.lengths, sh.db_c, sh.db_c1,
+
+        def match(i, sh, queries):
+            pf, p1, c1 = self._twopass_args(ph, prefilter, phases1, sh.db_c.shape[0])
+            return _two_stage(
+                queries.to(sh.db_c.device), sh.prints, sh.lengths, sh.db_c, sh.db_c1,
                 stride=self.stride, pool=pool, fine_window=fw, lc_true=self.lc_true,
                 kind=self.coarse_kind, channels=self.coarse_channels, phases=ph,
                 phases1=p1, prefilter=pf, channels1=c1,
                 packed1=bool(pf) and self.prefilter_pack4, pool_rows=self._pool_rows,
-                pool_exact=self._pool_exact, base=i * t_shard))
-        return blocks[0] if self.mesh is None else gather_blocks(blocks, self.mesh, dim=2)
+                pool_exact=self._pool_exact, base=i * sh.db_c.shape[0])
+
+        with trace("match.dispatch") as span:
+            graphed = False
+            if self._graphed:
+                key = (tuple(queries_dev.shape), queries_dev.stride(), queries_dev.dtype,
+                       pool, fw, ph) + self._twopass_args(ph, prefilter, phases1,
+                                                          self.db_c.shape[0])
+                out, graphed = self._graphs.run(self.device, key, queries_dev,
+                                                lambda q: match(0, self.shards[0], q))
+            else:
+                blocks = [match(i, sh, queries_dev) for i, sh in enumerate(self.shards)]
+                out = (blocks[0] if self.mesh is None
+                       else gather_blocks(blocks, self.mesh, dim=2))
+            span.attrs["graphed"] = graphed
+        return out
 
     def dispatch(self, query_dev: torch.Tensor, *, pool: int | None = None,
                  fine_window: int | None = None, phases: int | None = None,
@@ -570,21 +601,25 @@ class TwoStageDB:
 
     def warmup(self, query_lens, *, batch_sizes=(), pool: int | None = None,
                fine_window: int | None = None) -> None:
-        """Run the serving programs once now, on zero queries: dispatch for
-        each query length and dispatch_batch for each batch size at that
-        length, every device synchronised after each, as the reference runs
-        them to compile them. The port compiles nothing per shape; what this
-        takes out of a server's first request is the first use of each
-        kernel (loading the kernel library) and the allocator's first blocks
-        for those shapes. Under a mesh every shard runs."""
+        """Run the serving programs now, on zero queries: dispatch for each
+        query length and dispatch_batch for each batch size at that length,
+        every device synchronised after each, as the reference runs them to
+        compile them. The port compiles nothing per shape; what this takes
+        out of a server's first requests is the first use of each kernel
+        (loading the kernel library) and the allocator's first blocks for
+        those shapes, and on one card, where each shape runs twice, the
+        capture of its CUDA graph. Under a mesh every shard runs."""
+        runs = 2 if self._graphed else 1
         for n in query_lens:
             q = torch.zeros((int(n), 2), dtype=torch.int32, device=self.device)
-            self.dispatch(q, pool=pool, fine_window=fine_window)
-            self._synchronize()
-            for b in batch_sizes:
-                self.dispatch_batch(q.new_zeros((int(b), int(n), 2)), pool=pool,
-                                    fine_window=fine_window)
+            for _ in range(runs):
+                self.dispatch(q, pool=pool, fine_window=fine_window)
                 self._synchronize()
+            for b in batch_sizes:
+                qb = q.new_zeros((int(b), int(n), 2))
+                for _ in range(runs):
+                    self.dispatch_batch(qb, pool=pool, fine_window=fine_window)
+                    self._synchronize()
 
     def bundle_compile_cache(self, path: str, query_lens, *, batch_sizes=(),
                              pool: int | None = None, fine_window: int | None = None) -> int:

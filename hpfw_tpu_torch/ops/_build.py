@@ -9,11 +9,14 @@ unchanged tree is reused. There is no fallback: a missing nvcc, a failed
 build or a failed launch raises.
 
 Each wrapper that launches a kernel adds one to its entry of LAUNCHES, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels. A launch captured
+into a CUDA graph (inside captured_launches()) is counted at each replay of
+the graph instead (count_launches()), so LAUNCHES reads as it would eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -39,9 +42,33 @@ LAUNCHES = {"cqt": 0, "fingerprint": 0, "score_tracks": 0, "coarse_scan": 0,
             "fine_rescan": 0, "row_sum": 0}
 
 
+# The launches of a CUDA graph under capture on this thread, or None.
+_CAPTURING = threading.local()
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within the block, this thread's launches go into the dict it yields,
+    not into LAUNCHES: they are captured into a CUDA graph, and run only
+    when it replays."""
+    counts: dict[str, int] = {}
+    _CAPTURING.counts = counts
+    try:
+        yield counts
+    finally:
+        _CAPTURING.counts = None
+
+
+def count_launches(counts: dict[str, int]) -> None:
+    """Add a replayed graph's captured launches to LAUNCHES."""
+    with _LAUNCHES_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def find_nvcc() -> str:
@@ -143,6 +170,10 @@ def launch(name: str, fn_name: str, device: torch.device, *args) -> None:
     if code != 0:
         msg = lib.hpfw_error_string(code).decode()
         raise RuntimeError(f"{name} kernel failed: {msg} (cudaError {code})")
+    captured = getattr(_CAPTURING, "counts", None)
+    if captured is not None:
+        captured[name] = captured.get(name, 0) + 1
+        return
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
 

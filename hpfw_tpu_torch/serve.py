@@ -222,15 +222,18 @@ class MatchServer:
         return _bucket(n, self.max_batch)
 
     def warmup(self, example_query: np.ndarray) -> None:
-        """Run every batch bucket once, so that no first-use cost (the kernel
-        build, the allocator's first blocks) falls inside a request."""
+        """Run every batch bucket, so that no first-use cost (the kernel
+        build, the allocator's first blocks) falls inside a request; on one
+        card twice, the second capturing the bucket's CUDA graph on the
+        dispatcher's stream."""
         q = np.asarray(example_query, dtype=np.uint32)
         b = 1
         while True:
             rows = [q] * min(b, self.max_batch)
-            with _on(self._streams):
-                out, ready = self._dispatch(rows)
-            api._wait(ready)
+            for _ in range(2 if self.ts._graphed else 1):
+                with _on(self._streams):
+                    out, ready = self._dispatch(rows)
+                api._wait(ready)
             if b >= self.max_batch:
                 break
             b *= 4
@@ -243,6 +246,7 @@ class MatchServer:
             pass                           # dispatcher is draining; stop flag set
         self._thread.join()
         self._rank_pool.shutdown(wait=True)
+        self.ts._drop_graphs(self._streams)
 
     def __enter__(self):
         return self
@@ -449,17 +453,20 @@ class EscalatingMatchServer:
         return self.submit(pcm, timeout_ms=None).result()
 
     def warmup(self, example_pcm: np.ndarray) -> None:
-        """Run every rigid and scan batch bucket once, so that no first-use
-        cost (the kernel build, the allocator's first blocks) falls inside a
-        request."""
+        """Run every rigid and scan batch bucket, so that no first-use cost
+        (the kernel build, the allocator's first blocks) falls inside a
+        request; on one card each bucket's dispatch twice, the second
+        capturing its CUDA graph on its class's stream."""
         p = np.asarray(example_pcm, dtype=np.float32)
+        runs = 2 if self.ts._graphed else 1
         spec1 = None
         with _on(self._rigid_streams):
             b = 1
             while True:
                 specs, prints = self._extract([p] * min(b, self.max_batch))
                 spec1 = specs[0] if spec1 is None else spec1
-                self.ts.dispatch_batch(prints, pool=self.pool).cpu()   # waits
+                for _ in range(runs):
+                    self.ts.dispatch_batch(prints, pool=self.pool).cpu()   # waits
                 if b >= self.max_batch:
                     break
                 b *= 4
@@ -467,7 +474,9 @@ class EscalatingMatchServer:
             b = 1
             while True:
                 bb = _bucket(b, self.scan_batch)
-                self._scan_match(self._scan_stack([spec1] * bb)).cpu()
+                stack = self._scan_stack([spec1] * bb)
+                for _ in range(runs):
+                    self._scan_match(stack).cpu()
                 if bb >= self.scan_batch:
                     break
                 b *= 4
@@ -482,6 +491,7 @@ class EscalatingMatchServer:
         self._rigid_thread.join()
         self._scan_thread.join()
         self._rank_pool.shutdown(wait=True)
+        self.ts._drop_graphs(self._rigid_streams + self._scan_streams)
 
     def __enter__(self):
         return self

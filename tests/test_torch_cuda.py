@@ -9,6 +9,8 @@ Imports nothing of jax or hpfw_tpu.
 """
 
 import functools
+import threading
+import warnings
 
 import numpy as np
 import pytest
@@ -22,11 +24,13 @@ from hpfw_tpu_torch.oracle import audit, fix_eigenvector_signs
 from hpfw_tpu_torch.io import synth
 from hpfw_tpu_torch.learn import pca
 from hpfw_tpu_torch.match import matcher
+from hpfw_tpu_torch.match import graphs
 from hpfw_tpu_torch.match.scaled import TwoStageDB
 from hpfw_tpu_torch.match.sharded import ShardedDB
 from hpfw_tpu_torch.parallel import mesh as meshlib
 from hpfw_tpu_torch.ops import _build, coarse_scan, fine, frontend, probe
 from hpfw_tpu_torch.ops import fingerprint as fp_ops
+from hpfw_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -575,6 +579,164 @@ def test_match_server_on_card_equals_match(dev):
         np.testing.assert_array_equal(got[2], w[2])
 
 
+def _graph_catalog(dev, b):
+    """A packed catalog_scale() DB of 61 random tracks on the card and on
+    the CPU, and three batches of b excerpts of its tracks."""
+    cfg = HpfwConfig.catalog_scale(db_downsample=8, coarse_prefilter_pack4=True)
+    rng = np.random.default_rng(7)
+    t, l, n = 61, 400, 96
+    prints = rng.integers(0, 2 ** 32, (t, l, 2), dtype=np.uint32)
+    db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32),
+                           [str(i) for i in range(t)], prints, np.full(t, l, np.int32),
+                           device="cpu")
+    batches = []
+    for _ in range(3):
+        rows, offs = rng.integers(0, t, b), rng.integers(0, l - n, b)
+        qs = np.stack([prints[r, o:o + n] for r, o in zip(rows, offs)]).view(np.int32)
+        batches.append(torch.from_numpy(qs).to(dev))
+    return db, batches
+
+
+def _dispatches(first):
+    return [s.attrs["graphed"] for s in profiling.spans()
+            if s.name == "match.dispatch" and s.sid > first]
+
+
+@pytest.mark.parametrize("b", [1, 4, 16, 21, 63])
+def test_graphed_dispatch_equals_eager_and_cpu(dev, b):
+    """dispatch_batch's CUDA graph (the second call of a key captures it,
+    later calls replay it on new queries) gives the eager dispatch's
+    (B, 3, K) bit for bit, and the CPU DB's."""
+    db, batches = _graph_catalog(dev, b)
+    ts, on_cpu = TwoStageDB(db, device=dev), TwoStageDB(db)
+    first = profiling.new_id()
+    calls = [batches[0], batches[0], batches[1], batches[2], batches[0]]
+    outs = [ts.dispatch_batch(q, pool=16) for q in calls]
+    assert _dispatches(first) == [False, True, True, True, True]
+    assert len(ts._graphs) == 1
+    for q, got in zip(calls, outs):
+        eager = TwoStageDB(db, device=dev).dispatch_batch(q, pool=16)   # a first call
+        assert torch.equal(got, eager)
+        assert torch.equal(got.cpu(), on_cpu.dispatch_batch(q.cpu(), pool=16))
+
+
+def test_graph_results_held_across_replays(dev):
+    """Two results of one key held across a third replay keep their values:
+    each replay returns its own copy of the static output."""
+    db, batches = _graph_catalog(dev, 4)
+    ts = TwoStageDB(db, device=dev)
+    want = [TwoStageDB(db, device=dev).dispatch_batch(q, pool=16) for q in batches]
+    ts.dispatch_batch(batches[2], pool=16)
+    held = [ts.dispatch_batch(q, pool=16) for q in batches[:2]]    # capture, replay
+    third = ts.dispatch_batch(batches[2], pool=16)
+    torch.cuda.synchronize()
+    assert len(ts._graphs) == 1
+    assert torch.equal(held[0], want[0]) and torch.equal(held[1], want[1])
+    assert torch.equal(third, want[2]) and not torch.equal(held[0], held[1])
+
+
+def test_graph_replays_count_launches_as_eager(dev):
+    """_build.LAUNCHES after N calls of one key (one eager, one capture and
+    replay, N - 2 replays) equals N eager calls'."""
+    db, batches = _graph_catalog(dev, 16)
+    _build.reset_launch_counts()
+    TwoStageDB(db, device=dev).dispatch_batch(batches[0], pool=16)
+    once = dict(_build.LAUNCHES)
+    assert once["coarse_scan_batch_packed"] == once["coarse_rescan"] == 1
+    ts = TwoStageDB(db, device=dev)
+    _build.reset_launch_counts()
+    for k in range(5):
+        ts.dispatch_batch(batches[k % 3], pool=16)
+    assert len(ts._graphs) == 1
+    assert _build.LAUNCHES == {k: 5 * v for k, v in once.items()}
+
+
+def test_graph_keys_by_stream_and_cap(dev):
+    """A key is per stream: the same shape on two streams makes two graphs,
+    each replayed on its own stream; past graphs.CAP keys, calls run eager."""
+    db, batches = _graph_catalog(dev, 4)
+    ts = TwoStageDB(db, device=dev)
+    want = TwoStageDB(db, device=dev).dispatch_batch(batches[1], pool=16)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    for stream in (torch.cuda.current_stream(dev), side):
+        with torch.cuda.stream(stream):
+            ts.dispatch_batch(batches[0], pool=16)
+            ts.dispatch_batch(batches[0], pool=16)
+            got = ts.dispatch_batch(batches[1], pool=16)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        assert torch.equal(got, want)
+    assert len(ts._graphs) == 2
+    first = profiling.new_id()
+    for pool in range(24, 24 + 8 * graphs.CAP, 8):
+        ts.dispatch_batch(batches[0], pool=pool)
+        ts.dispatch_batch(batches[0], pool=pool)
+    assert len(ts._graphs) == graphs.CAP
+    assert _dispatches(first)[-2:] == [False, False]
+
+
+def test_graph_captures_from_two_threads_on_one_stream(dev):
+    """Two threads on one stream, each with a key of its own due to capture
+    at the same call: the stream's captures go one at a time (a thread that
+    finds one under way runs eager), none fails, every result equals the
+    eager dispatch's, and both keys end with a graph."""
+    db, small = _graph_catalog(dev, 4)
+    _, large = _graph_catalog(dev, 16)
+    ts = TwoStageDB(db, device=dev)
+    want = {b: [TwoStageDB(db, device=dev).dispatch_batch(q, pool=16) for q in qs]
+            for b, qs in ((4, small), (16, large))}
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    barrier = threading.Barrier(2)
+    got, errors = {4: [], 16: []}, []
+
+    def work(b, qs):
+        try:
+            with torch.cuda.stream(stream):
+                for k in range(6):
+                    barrier.wait(timeout=120)
+                    got[b].append(ts.dispatch_batch(qs[k % 3], pool=16))
+        except Exception as e:          # reported below
+            errors.append(e)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        threads = [threading.Thread(target=work, args=a) for a in ((4, small), (16, large))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    torch.cuda.synchronize()
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert not [w for w in caught if "capture failed" in str(w.message)]
+    assert len(ts._graphs) == len(ts._graphs._graphs) == 2
+    for b in (4, 16):
+        assert len(got[b]) == 6
+        for k, out in enumerate(got[b]):
+            assert torch.equal(out, want[b][k % 3])
+
+
+def test_server_restarts_on_one_db_drop_their_graphs(dev):
+    """MatchServers started and closed in turn on one DB: each captures its
+    buckets in warm-up, answers by a replay, and drops its streams' graphs
+    when it closes, so the DB never holds more than one server's graphs."""
+    db, batches = _graph_catalog(dev, 1)
+    ts = TwoStageDB(db, device=dev)
+    q = batches[0][0].cpu().numpy().view(np.uint32)
+    want = ts.match(q, pool=16)
+    for _ in range(6):
+        with MatchServer(ts, q.shape[0], max_batch=4, pool=16) as srv:
+            srv.warmup(q)
+            assert len(ts._graphs) == 2                   # buckets 1 and 4
+            first = profiling.new_id()
+            got = srv.match(q)
+        assert _dispatches(first) == [True]
+        assert len(ts._graphs) == 0
+        assert got[0] == want[0]
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+
+
 def test_coarse_and_fine_wrappers_reject_bad_inputs(dev):
     flat = torch.zeros((4, 128), dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
@@ -677,8 +839,11 @@ def _rendition(pcm, start_s, seconds, cfg, seed):
 
 def _plain_matcher_on_card(monkeypatch):
     """Route the two-stage matcher's K4 and K5 calls through their plain
-    versions (on the card too)."""
+    versions (on the card too). Dispatches run eager: a CUDA graph captured
+    earlier would replay the kernels without calling these names."""
     from hpfw_tpu_torch.match import scaled
+    monkeypatch.setattr(graphs.DispatchGraphs, "run",
+                        lambda self, device, key, queries, fn: (fn(queries), False))
     for name, ref in (("coarse_scan", coarse_scan.coarse_scan_ref),
                       ("coarse_scan_batch", coarse_scan.coarse_scan_batch_ref),
                       ("coarse_scan_batch_packed", coarse_scan.coarse_scan_batch_packed_ref),
