@@ -74,6 +74,16 @@ def _to_tensor_prints(prints: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one ("cuda" is the current card)."""
+    if a.type != b.type or a.type != "cuda":
+        return a.type == b.type
+
+    def index(d):
+        return d.index if d.index is not None else torch.cuda.current_device()
+    return index(a) == index(b)
+
+
 def _bucket_pad(pcm: np.ndarray, cfg: HpfwConfig, bucket_s: float) -> np.ndarray:
     """pcm zero-padded up to a multiple of bucket_s seconds (0: as it is)."""
     if bucket_s:
@@ -450,7 +460,7 @@ def match_scan_escalating(
         for i in low:
             ids, sc, off = results[i]
             if len(ids) and rigid_structured(
-                    prints[i], ts.db.prints[ts.db.index_of(ids[0])], off[0],
+                    prints[i], ts.db.print_row(ts.db.index_of(ids[0])), off[0],
                     inlier=structure_gate, slope_tol=structure_slope_tol,
                     length=int(ts.db.lengths[ts.db.index_of(ids[0])])):
                 kept.append(i)
@@ -562,26 +572,91 @@ class FingerprintDB:
     Saves and loads the same format_version=1 .npz as hpfw_tpu.api's
     FingerprintDB, and holds its device arrays on `device` (default: the
     card; raises when torch sees none).
+
+    prints is either a (T, L, 2) uint32 host array, uploaded to `device` on
+    the first device_arrays(), or a (T, L, 2) int32 tensor (the bits of
+    uint32) already on `device` (default: its own). A DB built from a tensor
+    is device-resident: device_arrays() returns that very tensor, and no
+    host copy of the prints exists until something reads the `prints`
+    attribute (save(), a mesh split, an explicit host user), which copies
+    them back once. host_bytes says how many bytes of prints the DB holds
+    in host memory. lengths may be a host array or a tensor; the DB keeps
+    a host copy of them either way.
     """
 
     def __init__(self, cfg: HpfwConfig, filters: np.ndarray,
-                 track_ids: list[str], prints: np.ndarray, lengths: np.ndarray,
+                 track_ids: list[str], prints: np.ndarray | torch.Tensor,
+                 lengths: np.ndarray | torch.Tensor,
                  *, device: str | torch.device | None = None):
         self.cfg = cfg
         self.filters = np.asarray(filters, dtype=np.float32)
         self.track_ids = list(track_ids)
-        self.prints = np.asarray(prints, dtype=np.uint32)    # (T, L, 2) padded
+        self._device_arrays = None
+        self._resident = None
+        if isinstance(prints, torch.Tensor):
+            if prints.dtype != torch.int32:
+                raise ValueError(f"device prints must be int32, got {prints.dtype}")
+            self.device = prints.device if device is None else torch.device(device)
+            if not _same_device(prints.device, self.device):
+                raise ValueError(f"prints are on {prints.device}, not on {self.device}")
+            self._resident = prints.contiguous()    # (T, L, 2) padded
+            self._host = None
+        else:
+            self._host = np.asarray(prints, dtype=np.uint32)    # (T, L, 2) padded
+            self.device = torch.device(device) if device is not None else default_device()
+        if isinstance(lengths, torch.Tensor):
+            lengths = lengths.cpu().numpy()
         self.lengths = np.asarray(lengths, dtype=np.int32)   # (T,)
-        self.device = torch.device(device) if device is not None else default_device()
+        shape = tuple(self._print_rows().shape)
         t = len(self.track_ids)
-        if self.prints.ndim != 3 or self.prints.shape[0] != t or self.prints.shape[2] != 2:
-            raise ValueError(f"prints must be ({t}, L, 2), got {self.prints.shape}")
+        if len(shape) != 3 or shape[0] != t or shape[2] != 2:
+            raise ValueError(f"prints must be ({t}, L, 2), got {shape}")
         if self.lengths.shape != (t,):
             raise ValueError(f"lengths must be ({t},), got {self.lengths.shape}")
-        if t and (self.lengths.min() < 0 or self.lengths.max() > self.prints.shape[1]):
+        if t and (self.lengths.min() < 0 or self.lengths.max() > shape[1]):
             raise ValueError("track lengths must lie in [0, L]")
-        self._device_arrays = None
+        if self._resident is not None:
+            self._device_arrays = (self._resident,
+                                   torch.from_numpy(self.lengths).to(self.device))
         self._id_index = None
+
+    def _print_rows(self):
+        """The prints as held: the device tensor of a resident DB, else the
+        host array (None once prints was set to None)."""
+        return self._resident if self._resident is not None else self._host
+
+    @property
+    def prints(self) -> np.ndarray | None:
+        """(T, L, 2) uint32 host prints. On a resident DB the first read
+        copies them from the device (a db.host_copy span) and keeps the copy."""
+        if self._host is None and self._resident is not None:
+            with trace("db.host_copy", bytes=self._resident.nbytes):
+                self._host = _to_numpy_prints(self._resident)
+        return self._host
+
+    @prints.setter
+    def prints(self, value) -> None:
+        """Replace the host prints (None: the DB holds no print rows); a
+        resident DB's device tensor goes with them."""
+        self._host = None if value is None else np.asarray(value, dtype=np.uint32)
+        self._resident = None
+
+    @property
+    def has_prints(self) -> bool:
+        """Whether the DB holds print rows, on the host or on its device."""
+        return self._print_rows() is not None
+
+    @property
+    def host_bytes(self) -> int:
+        """Bytes of prints held in host memory."""
+        return self._host.nbytes if self._host is not None else 0
+
+    def print_row(self, i: int) -> np.ndarray:
+        """(L, 2) uint32 prints of row i, from the host copy where there is one,
+        else one row copied from the device."""
+        if self._host is not None or self._resident is None:
+            return self._host[i]
+        return _to_numpy_prints(self._resident[i])
 
     def index_of(self, track_id: str) -> int:
         """Track-id -> row index."""
@@ -590,10 +665,12 @@ class FingerprintDB:
         return self._id_index[track_id]
 
     def device_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(T, L, 2) int32 prints and (T,) int32 lengths on self.device."""
+        """(T, L, 2) int32 prints and (T,) int32 lengths on self.device (a
+        resident DB's own tensor; host prints uploaded once, a db.upload span)."""
         if self._device_arrays is None:
-            self._device_arrays = (_to_tensor_prints(self.prints, self.device),
-                                   torch.from_numpy(self.lengths).to(self.device))
+            with trace("db.upload", bytes=self._host.nbytes):
+                self._device_arrays = (_to_tensor_prints(self._host, self.device),
+                                       torch.from_numpy(self.lengths).to(self.device))
         return self._device_arrays
 
     @property

@@ -246,13 +246,15 @@ class TwoStageDB:
     features a byte; their results are identical).
 
     On one device (mesh=None) they sit on `device`, by default the source
-    FingerprintDB's, as prints, lengths, db_c and db_c1. With a mesh
-    (parallel/mesh.py) the track axis is padded to a multiple of mesh size
-    x 8 and split into contiguous shards, shard i on mesh entry i, uploaded
-    from the DB's host prints and derived there a shard at a time; `shards`
-    holds every part (on one device, the one shard), and matching runs in
-    every shard before the candidate blocks meet on the first device,
-    `device`. On a CUDA device the coarse and fine stages run through K4
+    FingerprintDB's, as prints, lengths, db_c and db_c1; the prints are the
+    DB's device_arrays(), so a device-resident DB's tensor is used as it is
+    and never copied to the host. With a mesh (parallel/mesh.py) the track
+    axis is padded to a multiple of mesh size x 8 and split into contiguous
+    shards, shard i on mesh entry i, uploaded from the DB's host prints (a
+    device-resident FingerprintDB copies its prints to the host once for
+    this: db.prints) and derived there a shard at a time; `shards` holds
+    every part (on one device, the one shard), and matching runs in every
+    shard before the candidate blocks meet on the first device, `device`. On a CUDA device the coarse and fine stages run through K4
     and K5; on the CPU through their plain versions. The knobs default to
     db.cfg's, as in the reference. keep_host is the reference's keyword and
     changes nothing: save() copies the prints and coarse rows back from the
@@ -321,8 +323,10 @@ class TwoStageDB:
             parts = zip(split_tracks(prints, mesh), split_tracks(lengths, mesh))
         else:
             self.device = torch.device(device) if device is not None else db.device
-            if self.device == db.device:
-                prints, lengths = db.device_arrays()
+            if self.device == db.device or db.host_bytes == 0:
+                # No host copy (a resident DB): its tensor, moved only to
+                # another device.
+                prints, lengths = (a.to(self.device) for a in db.device_arrays())
             else:
                 prints = _to_tensor_prints(db.prints, self.device)
                 lengths = torch.from_numpy(db.lengths).to(self.device)
@@ -335,16 +339,22 @@ class TwoStageDB:
                 lengths = torch.cat([lengths, lengths.new_zeros(pad)])
             parts = [(prints, lengths)]
         self.n_real = db.n_tracks
-        self.lc_true = db.prints.shape[1] // self.stride
+        self.lc_true = prints.shape[1] // self.stride
         counts = [self.coarse_channels]
         if self.prefilter_channels < self.coarse_channels:
             counts.append(self.prefilter_channels)
         shards = []
         for p, ln in parts:
-            flats = _derive_coarse(p, ln, stride=self.stride, kind=self.coarse_kind,
-                                   channel_counts=counts)
-            shards.append(Shard(p, ln, flats[0], pack_coarse_nibbles(flats[-1])
-                                if self.prefilter_pack4 else flats[-1]))
+            with trace("index.derive", rows=int(p.shape[0])) as span:
+                flats = _derive_coarse(p, ln, stride=self.stride, kind=self.coarse_kind,
+                                       channel_counts=counts)
+                shard = Shard(p, ln, flats[0], pack_coarse_nibbles(flats[-1])
+                              if self.prefilter_pack4 else flats[-1])
+                span.attrs["bytes"] = shard.db_c.nbytes + (
+                    shard.db_c1.nbytes if shard.db_c1 is not shard.db_c else 0)
+                if shard.db_c.is_cuda:
+                    torch.cuda.synchronize(shard.db_c.device)   # the span ends with the work
+            shards.append(shard)
         self._set_shards(shards)
 
     def _set_shards(self, shards: list[Shard]) -> None:

@@ -58,7 +58,9 @@ class ShardedDB:
     The track axis is padded to a multiple of the mesh size with empty
     tracks (length 0: they score 0 and the ranking drops them, so one never
     outranks a real track) and split into contiguous shards, shard i on
-    mesh entry i, uploaded from the DB's host prints a shard at a time."""
+    mesh entry i, uploaded from the DB's host prints a shard at a time (a
+    device-resident FingerprintDB copies its prints to the host once for
+    this: db.prints)."""
 
     def __init__(self, db, mesh: Mesh):
         self.db = db

@@ -387,8 +387,9 @@ class EscalatingMatchServer:
         # gate: with the gate set, every query in the scan queue did.
         self.override_unstructured = (
             override_unstructured if structure_gate is not None else None)
-        if structure_gate is not None and ts.db.prints is None:
-            raise ValueError("structure_gate needs host print rows on ts.db.prints")
+        if structure_gate is not None and not ts.db.has_prints:
+            raise ValueError("structure_gate needs host print rows on ts.db.prints "
+                             "or a device-resident DB")
         self.hyps = api.scan_hypotheses(cfg, span, step, pitch_span_bins)
         self.interp = interp
         # About 70 variant rows a scan dispatch, as the reference sizes them.
@@ -601,7 +602,7 @@ class EscalatingMatchServer:
     def _structured(self, query_prints: np.ndarray, ranked) -> bool:
         db = self.ts.db
         row = db.index_of(ranked[0][0])
-        return api.rigid_structured(query_prints, db.prints[row], int(ranked[2][0]),
+        return api.rigid_structured(query_prints, db.print_row(row), int(ranked[2][0]),
                                     inlier=self.structure_gate,
                                     slope_tol=self.structure_slope_tol,
                                     length=int(db.lengths[row]))

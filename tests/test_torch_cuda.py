@@ -1204,3 +1204,45 @@ def test_warmup_over_logical_shards(dev, d, tmp_path):
         _same(a, b)
     assert warm.bundle_compile_cache(str(tmp_path), [n]) == 0
     assert not any(tmp_path.iterdir())
+
+
+def test_resident_db_past_2_31_elements_equals_plain(dev, monkeypatch):
+    """A device-resident FingerprintDB of 420,000 x 2,583 random prints
+    (2.17e9 int32 elements, past 2^31) under catalog_scale(pack4):
+    TwoStageDB builds its index from that very tensor; match_batch of noisy
+    excerpts of rows on both sides of element 2^31 finds each row first at
+    its offset, and equals the same DB matched through the plain K4/K5
+    versions; no host copy of the prints is made."""
+    cfg = HpfwConfig.catalog_scale(coarse_prefilter_pack4=True)
+    t, l, n, chunk = 420_000, 2583, 430, 16384
+    g = torch.Generator(device=dev).manual_seed(18)
+    prints = torch.empty((t, l, 2), dtype=torch.int32, device=dev)
+    for i in range(0, t, chunk):
+        prints[i:i + chunk] = torch.randint(-2 ** 31, 2 ** 31, (min(chunk, t - i), l, 2),
+                                            generator=g, device=dev,
+                                            dtype=torch.int64).to(torch.int32)
+    assert prints.numel() > 2 ** 31
+    db = api.FingerprintDB(cfg, np.zeros((cfg.context_dim, 64), np.float32),
+                           [str(i) for i in range(t)], prints,
+                           torch.full((t,), l, dtype=torch.int32, device=dev), device=dev)
+    first = profiling.new_id()
+    ts = TwoStageDB(db)
+    assert ts.prints.data_ptr() == prints.data_ptr() and ts.db_c.numel() > 2 ** 31
+    derive = [s for s in profiling.spans() if s.name == "index.derive" and s.sid > first]
+    assert [s.attrs["rows"] for s in derive] == [t]
+    # Row 415,681 holds element 2^31 (2^31 / (2 L) = 415,681.4).
+    rows, offs = [419_999, 415_681, 415_682, 300_000, 7], [2100, 1000, 0, 50, 1]
+    qs = torch.stack([prints[r, o:o + n] for r, o in zip(rows, offs)])
+    bits = torch.rand((len(rows), n, 2, 32), generator=g, device=dev) < 0.15
+    flips = (bits.to(torch.int64) << torch.arange(32, device=dev)).sum(-1)
+    qs = (qs.to(torch.int64) ^ flips).to(torch.int32).cpu().numpy().view(np.uint32)
+    got = ts.match_batch(qs)
+    for (ids, scores, o), r, off in zip(got, rows, offs):
+        assert (ids[0], int(o[0])) == (str(r), off) and scores[0] > 0.6 * 64 * n
+    _plain_matcher_on_card(monkeypatch)
+    for a, b in zip(got, ts.match_batch(qs)):
+        _same(a, b)
+    assert db.host_bytes == 0
+    assert not [s for s in profiling.spans() if s.name.startswith("db.") and s.sid > first]
+    del ts, db, prints
+    torch.cuda.empty_cache()
