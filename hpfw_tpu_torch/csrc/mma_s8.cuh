@@ -6,11 +6,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "smem.cuh"
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
+namespace {
 
 // 8 bytes from global to shared, zero-filled when !valid.
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {

@@ -146,7 +146,7 @@ def library() -> ctypes.CDLL:
     lib.hpfw_score_tracks_geometry.argtypes = [i32, i32, i32, ptr, ptr, ptr]
     lib.hpfw_score_tracks_geometry.restype = i64
     lib.hpfw_coarse_scan.argtypes = [ptr, i32, i32, i32, i32, ptr, i64, i32, ptr, i32,
-                                     i32, i32, i32, ptr, ptr, ptr]
+                                     i32, i32, i32, i32, i32, ptr, ptr, ptr]
     lib.hpfw_fine_rescan.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr, ptr, i32,
                                      i32, ptr, ptr, ptr]
     lib.hpfw_row_sum.argtypes = [ptr, i64, i64, ptr, ptr]

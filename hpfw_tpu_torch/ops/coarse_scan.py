@@ -25,22 +25,35 @@ version (the *_ref functions), which the tests hold against the reference.
 from __future__ import annotations
 
 import math
+from fractions import Fraction
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 from .coarse import correlation_blocks
 
-# K4 launch geometry (csrc/coarse.cu): a block of SCAN_WARPS warps stages 8
-# query lanes (16 when there are more than 8) and scans ROWS_PER_BLOCK rows,
-# each warp its own, streaming a row through shared memory a chunk of
-# offsets at a time, two chunks deep. Chunks are sized so that a block takes at most SCAN_SMEM bytes
-# (two blocks an SM); a query too long for even one chunk of one
-# group of offsets within the MAX_SMEM a block may use raises.
+# K4 launch geometry (csrc/coarse.cu). The int8 body: a block of SCAN_WARPS
+# warps stages 8 query lanes (16 when there are more than 8) and scans
+# ROWS_PER_BLOCK rows, each warp its own, streaming a row through shared
+# memory a chunk of offsets at a time, two chunks deep; chunks are sized so
+# that a block takes at most SCAN_SMEM bytes (two blocks an SM). The packed
+# body: a block (one warpgroup) stages PACKED_LANES lanes, two halves of
+# each query as the 64 rows of its wgmma products, and streams segments of
+# rows back to back, PACKED_STEP positions a tile of PACKED_TILE, at most
+# MAX_CHUNK_SEGS segments a chunk, within PACKED_SMEM bytes (three blocks an
+# SM) where it can. A query too long for even one chunk within the MAX_SMEM
+# a block may use raises.
 SCAN_WARPS = 4
 OFFSET_GROUP = 48            # offsets a warp scans at a time: 3 tiles of 16
 ROWS_PER_BLOCK = 16
+PACKED_LANES = 32
+PACKED_TILE = 192            # window positions a tile's two chains of products cover
+PACKED_STEP = 176            # positions a tile yields: half 1 is 16 on
+PACKED_HALF = 16             # query windows of a half in each block of 32
+MAX_CHUNK_SEGS = 64
 SCAN_SMEM = 110 * 1024
+PACKED_SMEM = 74 * 1024      # three packed blocks an SM
 MAX_SMEM = 227 * 1024
 MAX_GRID_Y = 65535
 # Rows a chunk of pack_coarse_nibbles packs at once.
@@ -110,24 +123,19 @@ def _check_off(nc: int, lc_true: int) -> None:
                          f"{lc_true} windows of the DB rows")
 
 
-def scan_geometry(n_win: int, nc: int, c: int, lanes: int,
-                  packed: bool = False) -> tuple[int, int]:
-    """K4's (chunk_off, shared-memory bytes) for rows of n_win windows, a
-    query of nc windows of c channels and `lanes` lanes a group. A block
-    stages 8 lanes (16 for more than 8) at nc * Cp + 16 bytes each (Cp = 32
-    or 64, c rounded up); each warp a chunk of chunk_off offsets (a whole
+def scan_geometry(n_win: int, nc: int, c: int, lanes: int) -> tuple[int, int]:
+    """The int8 body's (chunk_off, shared-memory bytes) for rows of n_win
+    windows, a query of nc windows of c channels and `lanes` lanes a group. A
+    block stages 8 lanes (16 for more than 8) at nc * Cp + 16 bytes each (Cp =
+    32 or 64, c rounded up); each warp a chunk of chunk_off offsets (a whole
     number of OFFSET_GROUP-offset groups) from cw = chunk_off + nc - 1
-    windows at Cp + 16 bytes, two buffers deep for int8 rows, or one buffer
-    and two of cw * c / 2 packed bytes (rounded up to 16) for packed rows.
-    chunk_off covers the whole row where that fits in SCAN_SMEM."""
+    windows at Cp + 16 bytes, two buffers deep. chunk_off covers the whole row
+    where that fits in SCAN_SMEM. Nibble-packed rows take packed_geometry."""
     cp = 32 if c <= 32 else 64
     q_bytes = (8 if lanes <= 8 else 16) * (nc * cp + 16)
 
     def smem(chunk_off: int) -> int:
-        cw = chunk_off + nc - 1
-        rows = cw * (cp + 16) + (2 * -(-cw * c // 2 // 16) * 16 if packed
-                                 else cw * (cp + 16))
-        return q_bytes + SCAN_WARPS * rows
+        return q_bytes + SCAN_WARPS * 2 * (chunk_off + nc - 1) * (cp + 16)
 
     chunk_off = OFFSET_GROUP * -(-(n_win - nc + 1) // OFFSET_GROUP)
     while chunk_off > OFFSET_GROUP and smem(chunk_off) > SCAN_SMEM:
@@ -137,6 +145,66 @@ def scan_geometry(n_win: int, nc: int, c: int, lanes: int,
                          f"{smem(chunk_off)} bytes of K4's shared memory; a block has "
                          f"{MAX_SMEM}")
     return chunk_off, smem(chunk_off)
+
+
+class PackedGeometry(NamedTuple):
+    seg_off: int         # offsets a segment: n_off where a whole row fits
+    chunk_segs: int      # segments a chunk
+    a_blocks: int        # blocks of 32 query windows staged at a time
+    smem: int            # shared-memory bytes a block
+
+
+def packed_smem(nc: int, c: int, seg_win: int, chunk_segs: int, a_blocks: int) -> int:
+    """The packed body's shared memory (csrc/coarse.cu packed_smem): a_blocks
+    blocks of 32 query windows for the 64 rows (PACKED_HALF windows of Cp
+    bytes each, Cp = 32 or 64, c rounded up); Cp bytes a window for the
+    chunk's tiles, PACKED_STEP positions apart, and the windows the last one
+    reads past them; each segment's seg_win * c / 2 packed bytes, rounded up
+    to 16; an 8-byte key a segment and lane."""
+    cp = 32 if c <= 32 else 64
+    tiles = -(-chunk_segs * seg_win // PACKED_STEP)
+    n_blocks = -(-nc // (2 * PACKED_HALF))
+    return (64 * PACKED_HALF * cp * a_blocks
+            + cp * ((tiles - 1) * PACKED_STEP + PACKED_TILE + 2 * PACKED_HALF * (n_blocks - 1)
+                    + PACKED_HALF - 1)
+            + chunk_segs * -(-(seg_win * c // 2) // 16) * 16 + 8 * PACKED_LANES * chunk_segs)
+
+
+def packed_geometry(n_win: int, nc: int, c: int) -> PackedGeometry:
+    """The packed body's geometry for rows of n_win windows and a query of nc
+    windows of c channels; a launch takes ceil(lanes / PACKED_LANES) blocks
+    on grid.y, so at catalog shapes each row is read and unpacked once. The
+    query's blocks of 32 windows are staged once where they fit (within
+    PACKED_SMEM, three blocks an SM, else MAX_SMEM) beside one segment of
+    min(n_win, nc + 7) windows, else a_blocks at a time. Rows are segments
+    laid back to back: a whole row each (seg_off = n_off) where one fits, the
+    chunk_segs (up to MAX_CHUNK_SEGS) that scan the fewest positions a
+    segment; else a chunk is one segment of seg_off offsets (a multiple of 8)
+    and a row several, whose windows overlap by nc - 1. Past MAX_SMEM,
+    raises."""
+    n_off = n_win - nc + 1
+    s_min = min(n_win, nc + 7)
+    n_blocks = -(-nc // (2 * PACKED_HALF))
+    for budget, a_blocks in ([(PACKED_SMEM, n_blocks)]
+                             + [(MAX_SMEM, a) for a in range(n_blocks, 0, -1)]):
+        if packed_smem(nc, c, s_min, 1, a_blocks) <= budget:
+            break
+    else:
+        raise ValueError(f"a query of {nc} coarse windows x {c} channels needs "
+                         f"{packed_smem(nc, c, s_min, 1, 1)} bytes of K4's shared memory; "
+                         f"a block has {MAX_SMEM}")
+
+    def smem(seg_win: int, r: int) -> int:
+        return packed_smem(nc, c, seg_win, r, a_blocks)
+
+    if smem(n_win, 1) <= budget:
+        fit = [r for r in range(1, MAX_CHUNK_SEGS + 1) if smem(n_win, r) <= budget]
+        r = min(fit, key=lambda r: (Fraction(-(-r * n_win // PACKED_STEP), r), -r))
+        return PackedGeometry(n_off, r, a_blocks, smem(n_win, r))
+    seg_off = (n_off - 1) // 8 * 8
+    while smem(seg_off + nc - 1, 1) > budget:
+        seg_off -= 8
+    return PackedGeometry(seg_off, 1, a_blocks, smem(seg_off + nc - 1, 1))
 
 
 def row_chunks(n_off: int, chunk_off: int) -> list[tuple[int, int]]:
@@ -219,8 +287,14 @@ def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
         if tuple(rows.shape) != (n_groups, n_rows):
             raise ValueError(f"rows must be ({n_groups}, {n_rows}), got {tuple(rows.shape)}")
     lanes = total // n_groups
-    chunk_off, _ = scan_geometry(lc_true, nc, c, lanes, packed)
-    if n_groups * -(-lanes // (8 if lanes <= 8 else 16)) > MAX_GRID_Y:
+    if packed:
+        geo = packed_geometry(lc_true, nc, c)
+        chunk_off, chunk_segs, a_blocks = geo.seg_off, geo.chunk_segs, geo.a_blocks
+        block_lanes = PACKED_LANES
+    else:
+        chunk_off, _ = scan_geometry(lc_true, nc, c, lanes)
+        chunk_segs, a_blocks, block_lanes = 0, 0, (8 if lanes <= 8 else 16)
+    if n_groups * -(-lanes // block_lanes) > MAX_GRID_Y:
         raise ValueError(f"too many query lanes for one launch ({total})")
     best = torch.empty((total, n_rows), dtype=torch.int32, device=db_flat.device)
     first = torch.empty_like(best)
@@ -229,8 +303,8 @@ def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
                       query_cs.data_ptr(), n_groups, lanes, nc, c,
                       db_flat.data_ptr(), lcw, lc_true,
                       rows.data_ptr() if rows is not None else None, n_rows,
-                      ROWS_PER_BLOCK, chunk_off, int(packed), best.data_ptr(),
-                      first.data_ptr())
+                      ROWS_PER_BLOCK, chunk_off, int(packed), chunk_segs, a_blocks,
+                      best.data_ptr(), first.data_ptr())
     return best, first
 
 

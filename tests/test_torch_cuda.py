@@ -386,37 +386,121 @@ def test_coarse_kernel_matches_plain(dev, c, lc, nc, values):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("c,lc,nc", [(32, 161, 26), (64, 161, 26), (8, 40, 5), (24, 161, 9)])
-def test_packed_coarse_kernel_matches_plain_and_int8(dev, c, lc, nc):
-    """Packed K4 == its plain version == int8 K4 on the unpacked rows, exactly;
-    C = 24 takes the odd packed-word path."""
-    rng = np.random.default_rng(100 + c + lc)
-    flat = _coarse_db(rng, 203, lc, c, nc, "pm1").to(dev)
+def _tile_ties(geo, n_win, n_off, nc, rows):
+    """Ties in rows of a packed chunk: (row, (first offset, equal later
+    offset)), the first at a tile's last position, at a tile's first, or the
+    later one at a tile's first, in turn where the row has them (tiles of
+    PACKED_STEP stream positions)."""
+    tile = coarse_scan.PACKED_STEP
+    plants = []
+    for r in rows:
+        base = (r % geo.chunk_segs) * n_win
+        first = [o for o in range(n_off) if (base + o) % tile == 0]
+        last = [o for o in range(n_off) if (base + o) % tile == tile - 1]
+        kinds = [[(a, b) for a, b in pairs if a >= 0 and b < n_off]
+                 for pairs in ([(o, o + nc) for o in last], [(o, o + nc) for o in first],
+                               [(o - nc, o) for o in first])]
+        kinds = [k for k in kinds[r % 3:] + kinds[:r % 3] if k]
+        if kinds:
+            plants.append((r, kinds[0][0]))
+    return plants
+
+
+@pytest.mark.parametrize("c,lc,nc,lanes", [
+    (32, 161, 26, 32), (32, 161, 26, 2), (32, 161, 26, 8), (32, 161, 26, 42),
+    (64, 161, 26, 8), (64, 161, 26, 32), (8, 40, 5, 42), (24, 161, 9, 16), (24, 161, 9, 32)])
+def test_packed_coarse_kernel_matches_plain_and_int8(dev, c, lc, nc, lanes):
+    """Packed K4 == its plain version == int8 K4 on the unpacked rows, exactly:
+    2-42 lanes (42 past PACKED_LANES: two blocks on grid.y), C = 8-64 (C = 24
+    takes the odd packed-word path), 203 rows (not a multiple of a chunk's),
+    ties at the first and last offset of a tile of the stream, a peak at a
+    row's last valid offset before a row that matches at its first, an
+    all-negative row whose positions past n_off run into such a row, rows
+    zero past their track's end and equal rows."""
+    rng = np.random.default_rng(100 + c + lc + lanes)
+    geo = coarse_scan.packed_geometry(lc, nc, c)
+    n_off, t = lc - nc + 1, 203
+    assert geo.seg_off == n_off and t % geo.chunk_segs
+    qs = rng.choice([-1, 1], (lanes, nc, c)).astype(np.int8)
+    qs[0] = 1
+    d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
+    for i, ln in enumerate(rng.integers(nc, lc + 1, size=t)):
+        d[i, ln:] = 0
+    full = 6 + 2 * geo.chunk_segs                             # rows of full length
+    d[:full] = rng.choice([-1, 1], (full, lc, c))
+    ties = _tile_ties(geo, lc, n_off, nc, range(6, full))
+    for r, offs in ties:
+        for o in offs:
+            d[r, o:o + nc] = qs[-1]
+    d[1, n_off - 1:] = 1                                      # lane 0: the last valid offset
+    d[2, :nc] = 1                                             # the next row matches at 0
+    d[3] = -1                                                 # all negative for lane 0
+    d[4, :nc] = 1
+    d[t - 1] = d[5]
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d)).to(dev)
     packed = coarse_scan.pack_coarse_nibbles(flat)
-    qs = torch.from_numpy(rng.choice([-1, 1], (16, nc, c)).astype(np.int8)).to(dev)
-    got = coarse_scan.coarse_scan_batch_packed_kernel(qs, packed, lc_true=lc)
-    want = coarse_scan.coarse_scan_batch_packed_ref(qs, packed, lc_true=lc)
-    int8 = coarse_scan.coarse_scan_batch_kernel(qs, flat, lc_true=lc)
+    q = torch.from_numpy(qs).to(dev)
+    got = coarse_scan.coarse_scan_batch_packed_kernel(q, packed, lc_true=lc)
+    want = coarse_scan.coarse_scan_batch_packed_ref(q, packed, lc_true=lc)
+    int8 = coarse_scan.coarse_scan_batch_kernel(q, flat, lc_true=lc)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     for a, b in zip(got, int8):
         assert torch.equal(a, b)
     assert torch.equal(coarse_scan.unpack_coarse_nibbles(packed)[:, :flat.shape[1]], flat)
+    assert int(got[1][0, 1]) == n_off - 1 and int(got[1][0, 2]) == 0
+    assert int(got[0][0, 3]) == -nc * c and int(got[0][0, 4]) == nc * c
+    assert len(ties) >= 3
+    for r, offs in ties:
+        assert int(got[0][lanes - 1, r]) == nc * c and int(got[1][lanes - 1, r]) == offs[0]
+
+
+@pytest.mark.parametrize("lc,nc,c,lanes", [(161, 97, 64, 3), (3000, 200, 32, 42)])
+def test_packed_coarse_kernel_long_query(dev, lc, nc, c, lanes):
+    """Packed K4 on queries too long for shared memory to hold at once (their
+    blocks of 32 windows staged a_blocks at a time, for each tile), on whole
+    rows and on long rows in segments: equal to its plain version and to
+    int8 K4, with a planted peak and an all-negative row."""
+    rng = np.random.default_rng(lc + nc + lanes)
+    geo = coarse_scan.packed_geometry(lc, nc, c)
+    assert geo.a_blocks < -(-nc // 32)
+    t = 40
+    qs = rng.choice([-1, 1], (lanes, nc, c)).astype(np.int8)
+    qs[0] = 1
+    d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
+    d[1, lc - nc - 3:lc - 3] = qs[-1]                        # a peak 3 offsets before the last
+    d[2] = -1                                                 # all negative for lane 0
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d)).to(dev)
+    packed = coarse_scan.pack_coarse_nibbles(flat)
+    q = torch.from_numpy(qs).to(dev)
+    got = coarse_scan.coarse_scan_batch_packed_kernel(q, packed, lc_true=lc)
+    want = coarse_scan.coarse_scan_batch_packed_ref(q, packed, lc_true=lc)
+    int8 = coarse_scan.coarse_scan_batch_kernel(q, flat, lc_true=lc)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(got, int8):
+        assert torch.equal(a, b)
+    assert int(got[1][lanes - 1, 1]) == lc - nc - 3
+    assert int(got[0][0, 2]) == -nc * c and int(got[1][0, 2]) == 0
 
 
 @pytest.mark.parametrize("lc,c,nc,lanes", [
     (3000, 64, 26, 1), (5000, 32, 26, 16), (3000, 8, 7, 2), (3002, 24, 26, 3),
-    (3000, 40, 10, 9), (5000, 56, 26, 17), (3000, 64, 26, 16)])
+    (3000, 40, 10, 9), (5000, 56, 26, 17), (3000, 64, 26, 16), (5000, 32, 26, 42),
+    (3000, 64, 26, 32)])
 def test_coarse_kernel_long_rows(dev, lc, c, nc, lanes):
     """K4 on rows past the old shared-memory limit (3,000 and 5,000 windows,
-    several chunks each), C = 8..64, n_off not a multiple of 16, 1-17 lanes:
+    several chunks each), C = 8..64, n_off not a multiple of 16, 1-42 lanes:
     every surface equal to its plain version, packed equal to int8, with
-    ties inside a row and across a chunk boundary and all-negative rows."""
+    ties inside a row and across a chunk boundary (the int8 body's and the
+    packed body's segments) and all-negative rows."""
     rng = np.random.default_rng(lc + c + lanes)
     t = 40
     chunk_off, _ = coarse_scan.scan_geometry(lc, nc, c, lanes)
     b = chunk_off                                             # the first chunk boundary
     assert (lc - nc + 1) % 16 and lc - nc + 1 > 2 * chunk_off
+    bp = coarse_scan.packed_geometry(lc, nc, c).seg_off      # the packed body's
+    split = bp < lc - nc + 1                                  # first segment boundary
     qs = rng.choice([-1, 1], (lanes, nc, c)).astype(np.int8)
     qs[0] = 1
     d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
@@ -431,6 +515,9 @@ def test_coarse_kernel_long_rows(dev, lc, c, nc, lanes):
     d[3] = -1                                                 # all negative for lane 0
     d[4] = -1                                                 # ... but for a zero tail:
     d[4, lc - nc - 5:] = 0                                    # 0 first at a padded offset
+    if split:
+        d[5, bp - 30:bp - 30 + nc] = qs[-1]                   # tie across the packed boundary
+        d[5, bp + 5:bp + 5 + nc] = qs[-1]
     flat = coarse_scan.flatten_coarse(torch.from_numpy(d)).to(dev)
     packed = coarse_scan.pack_coarse_nibbles(flat)
     q = torch.from_numpy(qs).to(dev)
@@ -441,6 +528,7 @@ def test_coarse_kernel_long_rows(dev, lc, c, nc, lanes):
     assert int(got[1][lanes - 1, 2]) == b - 1
     assert int(got[0][0, 3]) == -nc * c and int(got[1][0, 3]) == 0
     assert int(got[0][0, 4]) == 0 and int(got[1][0, 4]) == lc - nc - 5
+    assert not split or int(got[1][lanes - 1, 5]) == bp - 30
     got_p = coarse_scan.coarse_scan_batch_packed_kernel(q, packed, lc_true=lc)
     assert torch.equal(got_p[0], got[0]) and torch.equal(got_p[1], got[1])
     one = coarse_scan.coarse_scan_kernel(q[0], flat, lc_true=lc)
