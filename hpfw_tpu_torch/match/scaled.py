@@ -108,6 +108,30 @@ def _rank_dedup(scores, idx, offs, track_ids, top_k, aux=None):
     return out if aux is None else out + (aux[keep],)
 
 
+def _rank_variants(out, n_var, n_real, track_ids, top_k, *, calibrate=False, variant=False):
+    """Host ranking of B queries' (B * V, 3, K) [scores, track index,
+    offsets] rows, each query's V variant rows together: the real tracks
+    only (index < n_real), with calibrate each row's scores less that row's
+    median (an estimate of its imposter background). Returns a list of B
+    _rank_dedup results (track_ids, scores, offsets), plus each answer's
+    variant index with variant."""
+    k = out.shape[-1]
+    out = out.reshape(-1, n_var, 3, k)
+    rows = out.transpose(0, 2, 1, 3).reshape(len(out), 3, n_var * k)   # views at V = 1
+    cal = None
+    if calibrate:
+        cal = out[:, :, 0].astype(np.float64)
+        cal = (cal - np.median(cal, axis=-1, keepdims=True)).reshape(len(out), -1)
+    var = np.repeat(np.arange(n_var, dtype=np.int32), k) if variant else None
+    results = []
+    for b, (scores, idx, offs) in enumerate(rows):
+        real = idx < n_real
+        results.append(_rank_dedup((scores if cal is None else cal[b])[real], idx[real],
+                                   offs[real], track_ids, top_k,
+                                   aux=None if var is None else var[real]))
+    return results
+
+
 def _phase_variants(queries, *, stride, phases, kind, channels):
     """P phase-shifted coarse views of each query: ((B, P, Nc, C) int8, (P,)
     r). Variant p drops the first p * stride / P prints, so one variant lies
@@ -655,42 +679,20 @@ class TwoStageDB:
               stretch_step: float | None = None, return_variant: bool = False,
               calibrate: bool = False):
         """Rank tracks against one query, (N, 2) uint32 prints or a (V, N, 2)
-        stack of tempo variants ranked together. Returns (track_ids,
-        scores, offsets) (+ variant index with return_variant)."""
-        cfg = self.db.cfg
-        top_k = top_k if top_k is not None else cfg.top_k
+        stack of tempo variants ranked together: match_batch's path for a
+        batch of one, one dispatch_batch a call. Returns (track_ids, scores,
+        offsets) (+ variant index with return_variant). calibrate ranks a
+        stack's or a tempo scan's variant rows by their excess over each
+        row's median score."""
         qh = np.asarray(query_prints, dtype=np.uint32)
-        variants = None
         if qh.ndim == 3:
-            variants = qh
-            qh = qh[qh.shape[0] // 2]      # identity row (grid center)
-        self._check_query_len(qh.shape[0])
-        factors = self._stretch_factors(stretch_span, stretch_step)
-        if variants is None and factors is not None:
-            variants = print_variants(qh, factors)[0]
-        kw = dict(pool=pool, fine_window=fine_window, phases=phases,
-                  prefilter=prefilter, phases1=phases1)
-        if variants is not None:
-            outs = [self.dispatch(_to_tensor_prints(v, self.device), **kw)
-                    for v in variants]
-            host = [o.cpu().numpy() for o in outs]
-            scores = np.concatenate([o[0] for o in host])
-            idx = np.concatenate([o[1] for o in host])
-            offs = np.concatenate([o[2] for o in host])
-            if calibrate:
-                # Rank by each hypothesis's excess over its pool's median
-                # score, an estimate of that row's imposter background.
-                scores = np.concatenate([o[0] - np.median(o[0]) for o in host])
-            var = np.repeat(np.arange(len(variants), dtype=np.int32),
-                            scores.shape[0] // len(variants))
+            self._check_query_len(qh.shape[1])
+            rows, n_var, variants = qh, qh.shape[0], True
         else:
-            out = self.dispatch(_to_tensor_prints(qh, self.device), **kw)
-            scores, idx, offs = out.cpu().numpy()
-            var = np.zeros(scores.shape[0], dtype=np.int32)
-        real = idx < self.n_real
-        scores, idx, offs, var = scores[real], idx[real], offs[real], var[real]
-        return _rank_dedup(scores, idx, offs, self.db.track_ids, top_k,
-                           aux=var if return_variant else None)
+            rows, n_var, variants = self._scan_rows(qh[None], stretch_span, stretch_step)
+        return self._match_rows(rows, n_var, top_k=top_k, calibrate=calibrate and variants,
+                                variant=return_variant, pool=pool, fine_window=fine_window,
+                                phases=phases, prefilter=prefilter, phases1=phases1)[0]
 
     def match_batch(self, query_batch: np.ndarray, *, top_k: int | None = None,
                     pool: int | None = None, fine_window: int | None = None,
@@ -701,38 +703,34 @@ class TwoStageDB:
         variant stacks, in one coarse sweep. Returns a list of B (track_ids,
         scores, offsets) tuples, each what match() returns for that query.
         The host ranking is a `match.rank` span (utils/profiling.py)."""
-        cfg = self.db.cfg
-        top_k = top_k if top_k is not None else cfg.top_k
         qh = np.asarray(query_batch, dtype=np.uint32)
-        n_var = 1
-        if qh.ndim == 4:
-            n_var = qh.shape[1]
-            qh = qh.reshape(-1, qh.shape[2], 2)
+        # As in the reference, a (B, 1, N, 2) batch takes the tempo scan as
+        # a (B, N, 2) one does.
+        if qh.ndim == 4 and qh.shape[1] > 1:
+            self._check_query_len(qh.shape[2])
+            rows, n_var = qh.reshape(-1, qh.shape[2], 2), qh.shape[1]
+        else:
+            rows, n_var, _ = self._scan_rows(qh.reshape(-1, qh.shape[-2], 2), stretch_span,
+                                             stretch_step)
+        return self._match_rows(rows, n_var, top_k=top_k, calibrate=calibrate and n_var > 1,
+                                pool=pool, fine_window=fine_window, phases=phases,
+                                prefilter=prefilter, phases1=phases1)
+
+    def _scan_rows(self, qh: np.ndarray, stretch_span, stretch_step):
+        """(B, N, 2) queries -> (the (B * V, N, 2) rows of their tempo scan,
+        V, True); the queries themselves, 1 and False with no scan."""
         self._check_query_len(qh.shape[1])
-        factors = (self._stretch_factors(stretch_span, stretch_step)
-                   if n_var == 1 else None)
-        if factors is not None:
-            n_var = len(factors)
-            qh = print_variants(qh, factors).reshape(-1, qh.shape[1], 2)
-        out = self.dispatch_batch(_to_tensor_prints(qh, self.device), pool=pool,
-                                  fine_window=fine_window, phases=phases,
-                                  prefilter=prefilter, phases1=phases1).cpu().numpy()
+        factors = self._stretch_factors(stretch_span, stretch_step)
+        if factors is None:
+            return qh, 1, False
+        return print_variants(qh, factors).reshape(-1, qh.shape[1], 2), len(factors), True
+
+    def _match_rows(self, rows: np.ndarray, n_var: int, *, top_k: int | None,
+                    calibrate: bool, variant: bool = False, **kw):
+        """(B * V, N, 2) uint32 rows, V variants a query, in one
+        dispatch_batch, ranked by _rank_variants."""
+        top_k = top_k if top_k is not None else self.db.cfg.top_k
+        out = self.dispatch_batch(_to_tensor_prints(rows, self.device), **kw).cpu().numpy()
         with trace("match.rank"):
-            cal = None
-            if n_var > 1:
-                # (B*V, 3, K) -> (B, 3, V*K): a query's variant rows rank together.
-                out = out.reshape(-1, n_var, 3, out.shape[-1])
-                if calibrate:
-                    cal = out[:, :, 0].astype(np.float64)
-                    cal -= np.median(cal, axis=-1, keepdims=True)
-                    cal = cal.reshape(cal.shape[0], -1)
-                out = np.moveaxis(out, 1, 2).reshape(out.shape[0], 3, -1)
-            results = []
-            for b in range(out.shape[0]):
-                scores, idx, offs = out[b]
-                if cal is not None:
-                    scores = cal[b]
-                real = idx < self.n_real
-                scores, idx, offs = scores[real], idx[real], offs[real]
-                results.append(_rank_dedup(scores, idx, offs, self.db.track_ids, top_k))
-            return results
+            return _rank_variants(out, n_var, self.n_real, self.db.track_ids, top_k,
+                                  calibrate=calibrate, variant=variant)

@@ -17,6 +17,11 @@ ranks it on the host.
   - Queries share one length; a wrong length, or a submit after close(),
     fails fast.
 
+Each dispatch class is a _Lane: its queue, streams, batch cap, timers and
+dispatcher thread, and the rank-worker half of its batches. MatchServer has
+one lane; EscalatingMatchServer two, rigid and scan, which share its device
+slots and rank pool.
+
 On a CUDA device each dispatcher thread owns a torch.cuda.Stream on every
 device the DB's shards sit on (one on one card), made current for its
 launches; each stream waits once for the work that built the DB on its
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 
 from . import api
-from .match.scaled import _rank_dedup
+from .match.scaled import _rank_variants
 from .ops import fine, frontend
 from .ops import fingerprint as fp_ops
 from .utils import profiling
@@ -59,6 +64,15 @@ def _bucket(n: int, cap: int) -> int:
     while b < n:
         b *= 4
     return min(b, cap)
+
+
+def _buckets(cap: int):
+    """Every batch size _bucket gives under cap, smallest first."""
+    b = 1
+    while b < cap:
+        yield b
+        b *= 4
+    yield cap
 
 
 def _collect(q: queue.Queue, max_n: int, max_wait: float, first_wait: float | None = None):
@@ -159,7 +173,158 @@ def _on(streams):
         yield
 
 
-class MatchServer:
+class _Lane:
+    """One dispatch class of a server: its queue (items whose row is first
+    and whose future is last), its streams, its batch cap and timers, and
+    its dispatcher thread.
+
+    The dispatcher collects a batch, records its requests' waits as `admit`
+    spans (where given), pads it to its bucket, takes one of the server's
+    device slots, and runs launch(batch, rows, bid), which queues the batch
+    on the lane's streams and returns (host result, event or None, context).
+    A rank worker waits for the result, then runs rank(host, context, batch)
+    inside a serve.rank span of class `cls` (where given). The slot frees in
+    _settle, once the result has landed or the launch or the wait has
+    failed; a failure fails that batch only."""
+
+    def __init__(self, srv: "_Server", q: queue.Queue, cap: int, wait: float, launch, rank,
+                 *, first_wait: float | None = None, admit: str | None = None,
+                 cls: str | None = None):
+        self.srv, self.q = srv, q
+        self.cap, self.wait, self.first_wait = int(cap), wait, first_wait
+        self.launch, self.rank = launch, rank
+        self.admit, self.cls = admit, cls
+        self.streams = _new_streams(srv.ts)
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        srv = self.srv
+        with _on(self.streams):
+            while not srv._stop.is_set():
+                batch = _collect(self.q, self.cap, self.wait, self.first_wait)
+                if not batch:
+                    continue
+                bid = _admitted(self.admit, batch) if self.admit else None
+                rows = [item[0] for item in batch]
+                rows += [rows[-1]] * (_bucket(len(rows), self.cap) - len(rows))
+                # Bound the device queue: a slot frees when a result lands.
+                if not _acquire(srv._device_slots, srv._stop):
+                    _fail([item[-1] for item in batch], RuntimeError("server closed"))
+                    break
+                try:
+                    out, ready, ctx = self.launch(batch, rows, bid)
+                except Exception as e:             # a failed launch fails its batch
+                    self._settle(batch, e)
+                    continue
+                srv._rank_pool.submit(self._finish, out, ready, ctx, batch, bid)
+
+    def _finish(self, out, ready, ctx, batch, bid):
+        """Rank-worker side: wait for the batch's result, then rank it."""
+        try:
+            api._wait(ready)
+            host = out.numpy()
+        except Exception as e:                     # device failure: fail futures
+            self._settle(batch, e)
+            return
+        self._settle(batch)
+        with (trace("serve.rank", parent=bid, cls=self.cls) if self.cls
+              else contextlib.nullcontext()):
+            self.rank(host, ctx, batch)
+
+    def _settle(self, batch, exc: Exception | None = None) -> None:
+        """Free the batch's device slot; with exc, fail its futures."""
+        self.srv._device_slots.release()
+        if exc is not None:
+            _fail([item[-1] for item in batch], exc)
+
+
+class _Server:
+    """What both servers share around their lanes: the checks and timed put
+    of submit, the device slots and rank pool, ranking a result, close and
+    the context manager."""
+
+    # Whether submit records serve.submit and serve.request spans; its items
+    # then carry the submit stamp and the request's id.
+    _SPANS = False
+
+    def __init__(self, ts, *, max_queue: int, depth: int, submit_timeout_ms: float,
+                 rank_workers: int, prefix: str):
+        self.ts = ts
+        self.device = ts.device
+        self.submit_timeout = submit_timeout_ms / 1e3
+        self._q: queue.Queue = queue.Queue(maxsize=int(max_queue))
+        self._stop = threading.Event()
+        self._device_slots = threading.Semaphore(int(depth))
+        self._rank_pool = ThreadPoolExecutor(max_workers=int(rank_workers),
+                                             thread_name_prefix=prefix)
+
+    def _start(self, *lanes: _Lane) -> None:
+        self._lanes = lanes
+        for lane in lanes:
+            lane.thread.start()
+
+    def _count(self, key: str) -> None:
+        """Count a submission by its outcome (a class with stats)."""
+
+    def _submit(self, x: np.ndarray, shape: tuple, unit: str,
+                timeout_ms: float | None) -> Future:
+        fut: Future = Future()
+        if x.shape != shape:
+            fut.set_exception(ValueError(
+                f"server is pinned to {shape[0]}-{unit} queries, got {x.shape}"))
+            return fut
+        if self._stop.is_set():
+            fut.set_exception(RuntimeError("server closed"))
+            return fut
+        wait = self.submit_timeout if timeout_ms is None else timeout_ms / 1e3
+        with (trace("serve.submit") if self._SPANS else contextlib.nullcontext()) as span:
+            item = (x, fut)
+            if span is not None:
+                # The request's id is this span's; the future stays last (_drain).
+                item = (x, span.t0, span.sid, fut)
+                fut.add_done_callback(_request_done(span.t0, span.sid))
+            try:
+                if wait > 0:
+                    self._q.put(item, timeout=wait)
+                else:
+                    self._q.put_nowait(item)
+                self._count("submitted")
+            except queue.Full:
+                self._count("shed")
+                fut.set_exception(ServerSaturated(
+                    f"submit queue full ({self._q.maxsize} pending)"))
+        return fut
+
+    def _k(self) -> int:
+        return self.top_k if self.top_k else self.ts.db.cfg.top_k
+
+    def _rank(self, out_v: np.ndarray, depth: int):
+        """One query's (V, 3, K) result rows, ranked together `depth` deep."""
+        return _rank_variants(out_v, len(out_v), self.ts.n_real, self.ts.db.track_ids,
+                              depth)[0]
+
+    def close(self) -> None:
+        self._stop.set()
+        for lane in self._lanes:
+            try:
+                lane.q.put_nowait(None)    # wake the dispatcher
+            except queue.Full:
+                pass                       # dispatcher is draining; stop flag set
+        for lane in self._lanes:
+            lane.thread.join()
+        self._rank_pool.shutdown(wait=True)
+        for lane in self._lanes:           # also what a rank worker queued late
+            _drain(lane.q)
+        self.ts._drop_graphs([s for lane in self._lanes for s in lane.streams])
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class MatchServer(_Server):
     """Micro-batching wrapper around TwoStageDB.dispatch_batch."""
 
     def __init__(self, ts, query_prints: int, *, max_batch: int = 16,
@@ -167,23 +332,19 @@ class MatchServer:
                  top_k: int | None = None, pool: int | None = None,
                  max_queue: int = 256, submit_timeout_ms: float = 0.0,
                  rank_workers: int = 4):
-        self.ts = ts
         self.n_q = int(query_prints)
         self.max_batch = int(max_batch)
         self.max_wait = max_wait_ms / 1e3
         self.depth = int(depth)
         self.top_k = top_k
         self.pool = pool
-        self.submit_timeout = submit_timeout_ms / 1e3
-        self.device = ts.device
-        self._streams = _new_streams(ts)
-        self._q: queue.Queue = queue.Queue(maxsize=int(max_queue))
-        self._stop = threading.Event()
-        self._device_slots = threading.Semaphore(self.depth)
-        self._rank_pool = ThreadPoolExecutor(
-            max_workers=int(rank_workers), thread_name_prefix="hpfw-rank")
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
+        super().__init__(ts, max_queue=max_queue, depth=depth,
+                         submit_timeout_ms=submit_timeout_ms, rank_workers=rank_workers,
+                         prefix="hpfw-rank")
+        self._lane = _Lane(self, self._q, self.max_batch, self.max_wait,
+                           self._launch, self._rank_batch)
+        self._thread = self._lane.thread
+        self._start(self._lane)
 
     # ---- client surface -------------------------------------------------
     def submit(self, query_prints: np.ndarray,
@@ -194,25 +355,8 @@ class MatchServer:
         (default: the server's submit_timeout_ms) and then resolves the
         future with ServerSaturated.
         """
-        q = np.asarray(query_prints, dtype=np.uint32)
-        fut: Future = Future()
-        if q.shape != (self.n_q, 2):
-            fut.set_exception(ValueError(
-                f"server is pinned to {self.n_q}-print queries, got {q.shape}"))
-            return fut
-        if self._stop.is_set():
-            fut.set_exception(RuntimeError("server closed"))
-            return fut
-        wait = self.submit_timeout if timeout_ms is None else timeout_ms / 1e3
-        try:
-            if wait > 0:
-                self._q.put((q, fut), timeout=wait)
-            else:
-                self._q.put_nowait((q, fut))
-        except queue.Full:
-            fut.set_exception(ServerSaturated(
-                f"submit queue full ({self._q.maxsize} pending)"))
-        return fut
+        return self._submit(np.asarray(query_prints, dtype=np.uint32), (self.n_q, 2),
+                            "print", timeout_ms)
 
     def match(self, query_prints: np.ndarray):
         """Blocking convenience wrapper."""
@@ -227,32 +371,11 @@ class MatchServer:
         card twice, the second capturing the bucket's CUDA graph on the
         dispatcher's stream."""
         q = np.asarray(example_query, dtype=np.uint32)
-        b = 1
-        while True:
-            rows = [q] * min(b, self.max_batch)
-            for _ in range(2 if self.ts._graphed else 1):
-                with _on(self._streams):
-                    out, ready = self._dispatch(rows)
-                api._wait(ready)
-            if b >= self.max_batch:
-                break
-            b *= 4
-
-    def close(self) -> None:
-        self._stop.set()
-        try:
-            self._q.put_nowait(None)       # wake the dispatcher
-        except queue.Full:
-            pass                           # dispatcher is draining; stop flag set
-        self._thread.join()
-        self._rank_pool.shutdown(wait=True)
-        self.ts._drop_graphs(self._streams)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
+        with _on(self._lane.streams):
+            for b in _buckets(self.max_batch):
+                for _ in range(2 if self.ts._graphed else 1):
+                    out, ready = self._dispatch([q] * b)
+                    api._wait(ready)
 
     # ---- device side ----------------------------------------------------
     def _dispatch(self, rows):
@@ -260,56 +383,21 @@ class MatchServer:
         ((B, 3, K) int32 host tensor, event to wait on or None). No sync."""
         host = torch.from_numpy(np.stack(rows).view(np.int32))
         out_dev = self.ts.dispatch_batch(api._upload(host, self.device), pool=self.pool)
-        return api._to_host(out_dev, self._streams[0])
+        return api._to_host(out_dev, self._lane.streams[0])
 
-    def _run(self):
-        with _on(self._streams):
-            while not self._stop.is_set():
-                batch = _collect(self._q, self.max_batch, self.max_wait)
-                if not batch:
-                    break
-                rows = [q for q, _ in batch]
-                rows += [rows[-1]] * (self._bucket(len(rows)) - len(rows))
-                futs = [f for _, f in batch]
-                # Bound the device queue: a slot frees when a result lands.
-                if not _acquire(self._device_slots, self._stop):
-                    _fail(futs, RuntimeError("server closed"))
-                    break
-                try:
-                    out, ready = self._dispatch(rows)
-                except Exception as e:             # a failed launch fails its batch
-                    self._device_slots.release()
-                    _fail(futs, e)
-                    continue
-                self._rank_pool.submit(self._finish, out, ready, futs)
-        _drain(self._q)
+    def _launch(self, batch, rows, bid):
+        return (*self._dispatch(rows), None)
 
-    def _finish(self, out, ready, futs):
-        """Rank-worker side: wait for the batch's result, then rank each query."""
-        try:
-            api._wait(ready)
-            host = out.numpy()
-        except Exception as e:                     # device failure: fail futures
-            self._device_slots.release()
-            _fail(futs, e)
-            return
-        self._device_slots.release()
-        for b, fut in enumerate(futs):
+    def _rank_batch(self, host, ctx, batch):
+        for out_b, (_, fut) in zip(host, batch):
             if fut.set_running_or_notify_cancel():
                 try:
-                    fut.set_result(self._rank(host[b]))
+                    fut.set_result(self._rank(out_b[None], self._k()))
                 except Exception as e:
                     fut.set_exception(e)
 
-    def _rank(self, out_b: np.ndarray):
-        cfg = self.ts.db.cfg
-        scores, idx, offs = out_b
-        real = idx < self.ts.n_real
-        return _rank_dedup(scores[real], idx[real], offs[real], self.ts.db.track_ids,
-                           self.top_k if self.top_k else cfg.top_k)
 
-
-class EscalatingMatchServer:
+class EscalatingMatchServer(_Server):
     """PCM-in serving loop with identity-first rendition-scan escalation:
     api.match_scan_escalating as a service.
 
@@ -350,6 +438,8 @@ class EscalatingMatchServer:
       - serve.request: submit to the answer or failure, `escalated`.
     """
 
+    _SPANS = True
+
     def __init__(self, ts, filters, query_samples: int, *,
                  max_batch: int = 16, max_wait_ms: float = 5.0,
                  scan_batch: int | None = None,
@@ -365,7 +455,6 @@ class EscalatingMatchServer:
                  structure_slope_tol: float = 0.005,
                  override_unstructured: float | None = None,
                  interp: str = "linear"):
-        self.ts = ts
         cfg = ts.db.cfg
         self.cfg = cfg
         self.n_samples = int(query_samples)
@@ -396,24 +485,22 @@ class EscalatingMatchServer:
         self.scan_batch = int(scan_batch) if scan_batch else max(1, 70 // len(self.hyps))
         self.scan_wait = (scan_wait_ms / 1e3 if scan_wait_ms is not None
                           else 2 * self.max_wait)
-        self.submit_timeout = submit_timeout_ms / 1e3
-        self.device = ts.device
+        super().__init__(ts, max_queue=max_queue, depth=depth,
+                         submit_timeout_ms=submit_timeout_ms, rank_workers=rank_workers,
+                         prefix="hpfw-esc")
         self._filters = api._filters_on(filters, cfg, self.device)
-        self._rigid_streams = _new_streams(ts)
-        self._scan_streams = _new_streams(ts)
-        self._q: queue.Queue = queue.Queue(maxsize=int(max_queue))
         self._scan_q: queue.Queue = queue.Queue()
-        self._stop = threading.Event()
-        self._device_slots = threading.Semaphore(int(depth))
-        self._rank_pool = ThreadPoolExecutor(
-            max_workers=int(rank_workers), thread_name_prefix="hpfw-esc")
         self._lock = threading.Lock()
         self.stats = {"submitted": 0, "confident": 0, "escalated": 0,
                       "overridden": 0, "structure_kept": 0, "shed": 0}
-        self._rigid_thread = threading.Thread(target=self._run_rigid, daemon=True)
-        self._scan_thread = threading.Thread(target=self._run_scan, daemon=True)
-        self._rigid_thread.start()
-        self._scan_thread.start()
+        self._rigid = _Lane(self, self._q, self.max_batch, self.max_wait,
+                            self._launch_rigid, self._rank_rigid,
+                            admit="serve.admit", cls="rigid")
+        self._scan = _Lane(self, self._scan_q, self.scan_batch, self.scan_wait,
+                           self._launch_scan, self._rank_scan, first_wait=self.scan_wait,
+                           admit="serve.scan_admit", cls="scan")
+        self._rigid_thread, self._scan_thread = self._rigid.thread, self._scan.thread
+        self._start(self._rigid, self._scan)
 
     def _count(self, key: str) -> None:
         with self._lock:
@@ -422,32 +509,8 @@ class EscalatingMatchServer:
     # ---- client surface -------------------------------------------------
     def submit(self, pcm: np.ndarray, timeout_ms: float | None = None) -> Future:
         """Queue one PCM window; resolves to (ids, scores, offs, escalated)."""
-        p = np.asarray(pcm, dtype=np.float32)
-        fut: Future = Future()
-        if p.shape != (self.n_samples,):
-            fut.set_exception(ValueError(
-                f"server is pinned to {self.n_samples}-sample queries, got {p.shape}"))
-            return fut
-        if self._stop.is_set():
-            fut.set_exception(RuntimeError("server closed"))
-            return fut
-        wait = self.submit_timeout if timeout_ms is None else timeout_ms / 1e3
-        with trace("serve.submit") as span:
-            # The item carries the submit stamp and the request's id (this
-            # span's); its future stays last (_drain).
-            item = (p, span.t0, span.sid, fut)
-            fut.add_done_callback(_request_done(span.t0, span.sid))
-            try:
-                if wait > 0:
-                    self._q.put(item, timeout=wait)
-                else:
-                    self._q.put_nowait(item)
-                self._count("submitted")
-            except queue.Full:
-                self._count("shed")
-                fut.set_exception(ServerSaturated(
-                    f"submit queue full ({self._q.maxsize} pending)"))
-        return fut
+        return self._submit(np.asarray(pcm, dtype=np.float32), (self.n_samples,),
+                            "sample", timeout_ms)
 
     def match(self, pcm: np.ndarray):
         """Blocking convenience wrapper."""
@@ -461,44 +524,17 @@ class EscalatingMatchServer:
         p = np.asarray(example_pcm, dtype=np.float32)
         runs = 2 if self.ts._graphed else 1
         spec1 = None
-        with _on(self._rigid_streams):
-            b = 1
-            while True:
-                specs, prints = self._extract([p] * min(b, self.max_batch))
+        with _on(self._rigid.streams):
+            for b in _buckets(self.max_batch):
+                specs, prints = self._extract([p] * b)
                 spec1 = specs[0] if spec1 is None else spec1
                 for _ in range(runs):
                     self.ts.dispatch_batch(prints, pool=self.pool).cpu()   # waits
-                if b >= self.max_batch:
-                    break
-                b *= 4
-        with _on(self._scan_streams):
-            b = 1
-            while True:
-                bb = _bucket(b, self.scan_batch)
-                stack = self._scan_stack([spec1] * bb)
+        with _on(self._scan.streams):
+            for b in _buckets(self.scan_batch):
+                stack = self._scan_stack([spec1] * b)
                 for _ in range(runs):
                     self._scan_match(stack).cpu()
-                if bb >= self.scan_batch:
-                    break
-                b *= 4
-
-    def close(self) -> None:
-        self._stop.set()
-        for q in (self._q, self._scan_q):
-            try:
-                q.put_nowait(None)         # wake the dispatcher
-            except queue.Full:
-                pass                       # dispatcher is draining; stop flag set
-        self._rigid_thread.join()
-        self._scan_thread.join()
-        self._rank_pool.shutdown(wait=True)
-        self.ts._drop_graphs(self._rigid_streams + self._scan_streams)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
 
     # ---- device side ----------------------------------------------------
     def _extract(self, rows):
@@ -523,56 +559,24 @@ class EscalatingMatchServer:
         return torch.cat([self.ts.dispatch_batch(stack[i:i + step], pool=self.pool)
                           for i in range(0, stack.shape[0], step)])
 
-    # ---- the rigid class ------------------------------------------------
-    def _run_rigid(self):
-        with _on(self._rigid_streams):
-            while not self._stop.is_set():
-                batch = _collect(self._q, self.max_batch, self.max_wait)
-                if not batch:
-                    continue
-                bid = _admitted("serve.admit", batch)
-                rows = [p for p, _, _, _ in batch]
-                rows += [rows[-1]] * (_bucket(len(rows), self.max_batch) - len(rows))
-                futs = [f for _, _, _, f in batch]
-                if not _acquire(self._device_slots, self._stop):
-                    _fail(futs, RuntimeError("server closed"))
-                    break
-                try:
-                    with trace("serve.extract", parent=bid, cls="rigid"):
-                        specs, prints = self._extract(rows)
-                    with trace("serve.dispatch", sid=bid, cls="rigid", rows=len(batch),
-                               padded=len(rows)):
-                        out, ready = api._to_host(
-                            self.ts.dispatch_batch(prints, pool=self.pool),
-                            self._rigid_streams[0])
-                except Exception as e:             # a failed launch fails its batch
-                    self._device_slots.release()
-                    _fail(futs, e)
-                    continue
-                self._rank_pool.submit(self._finish_rigid, out, ready, specs, prints,
-                                       [(r, f) for _, _, r, f in batch], bid)
-        _drain(self._q)
+    # ---- the rigid class: items (pcm, stamp, request id, future) ---------
+    def _launch_rigid(self, batch, rows, bid):
+        with trace("serve.extract", parent=bid, cls="rigid"):
+            specs, prints = self._extract(rows)
+        with trace("serve.dispatch", sid=bid, cls="rigid", rows=len(batch),
+                   padded=len(rows)):
+            out, ready = api._to_host(self.ts.dispatch_batch(prints, pool=self.pool),
+                                      self._rigid.streams[0])
+        return out, ready, (specs, prints, ready)
 
-    def _finish_rigid(self, out, ready, specs, prints, items, bid):
-        """Rank-worker side of a rigid batch: resolve the confident answers
-        first, then the structure gate, then queue the rest for the scan.
-        items: (request id, future) a query."""
-        try:
-            api._wait(ready)
-            host = out.numpy()
-        except Exception as e:                     # device failure: fail futures
-            self._device_slots.release()
-            _fail([f for _, f in items], e)
-            return
-        self._device_slots.release()
-        with trace("serve.rank", parent=bid, cls="rigid"):
-            self._rank_rigid(host, specs, prints, items, ready)
-
-    def _rank_rigid(self, host, specs, prints, items, ready):
+    def _rank_rigid(self, host, ctx, batch):
+        """Resolve the confident answers first, then the structure gate, then
+        queue the rest for the scan."""
+        specs, prints, ready = ctx
         unconfident = []
-        for b, (req, fut) in enumerate(items):
+        for b, (_, _, req, fut) in enumerate(batch):
             try:
-                ranked = self._rank(host[b])
+                ranked = self._rank(host[b][None], max(2, self._k()))
                 if api.rigid_confident(ranked[1], self.n_q, **self.gate):
                     self._count("confident")
                     self._resolve(fut, ranked, False)
@@ -607,66 +611,33 @@ class EscalatingMatchServer:
                                     slope_tol=self.structure_slope_tol,
                                     length=int(db.lengths[row]))
 
-    # ---- the scan class -------------------------------------------------
-    def _run_scan(self):
-        scan_stream = self._scan_streams[0]
-        with _on(self._scan_streams):
-            while not self._stop.is_set():
-                batch = _collect(self._scan_q, self.scan_batch, self.scan_wait,
-                                 first_wait=self.scan_wait)
-                if not batch:
-                    continue
-                sid = _admitted("serve.scan_admit", batch)
-                specs = [s for s, _, _, _, _, _ in batch]
-                specs += [specs[-1]] * (_bucket(len(specs), self.scan_batch) - len(specs))
-                futs = [f for _, _, _, _, _, f in batch]
-                if not _acquire(self._device_slots, self._stop):
-                    _fail(futs, RuntimeError("server closed"))
-                    break
-                try:
-                    if scan_stream is not None:
-                        # The spectra come from the rigid stream: wait for
-                        # their batch's event, and keep their memory until
-                        # the scan stream's work on them has run.
-                        for ev in {id(r): r for _, _, _, r, _, _ in batch}.values():
-                            scan_stream.wait_event(ev)
-                        for s in specs:
-                            s.record_stream(scan_stream)
-                    with trace("serve.extract", parent=sid, cls="scan"):
-                        stack = self._scan_stack(specs)
-                    with trace("serve.dispatch", sid=sid, cls="scan", rows=len(batch),
-                               padded=len(specs)):
-                        out, ready = api._to_host(self._scan_match(stack), scan_stream)
-                except Exception as e:             # a failed launch fails its batch
-                    self._device_slots.release()
-                    _fail(futs, e)
-                    continue
-                self._rank_pool.submit(self._finish_scan, out, ready,
-                                       [(k, f) for _, _, _, _, k, f in batch], sid)
-        _drain(self._scan_q)
+    # ---- the scan class: items (spectrum, stamp, request id, rigid event,
+    # ---- rigid answer, future) -------------------------------------------
+    def _launch_scan(self, batch, specs, sid):
+        scan_stream = self._scan.streams[0]
+        if scan_stream is not None:
+            # The spectra come from the rigid stream: wait for their batch's
+            # event, and keep their memory until the scan stream's work on
+            # them has run.
+            for ev in {id(item[3]): item[3] for item in batch}.values():
+                scan_stream.wait_event(ev)
+            for s in specs:
+                s.record_stream(scan_stream)
+        with trace("serve.extract", parent=sid, cls="scan"):
+            stack = self._scan_stack(specs)
+        with trace("serve.dispatch", sid=sid, cls="scan", rows=len(batch),
+                   padded=len(specs)):
+            out, ready = api._to_host(self._scan_match(stack), scan_stream)
+        return out, ready, None
 
-    def _finish_scan(self, out, ready, items, sid):
-        try:
-            api._wait(ready)
-            host = out.numpy()
-        except Exception as e:
-            self._device_slots.release()
-            _fail([f for _, f in items], e)
-            return
-        self._device_slots.release()
-        with trace("serve.rank", parent=sid, cls="scan"):
-            self._rank_scan(host, items)
-
-    def _rank_scan(self, host, items):
-        v = len(self.hyps)
-        # (B * V, 3, K) -> (B, 3, V * K): a query's hypothesis rows rank together.
-        host = np.moveaxis(host.reshape(-1, v, 3, host.shape[-1]), 1, 2)
-        host = host.reshape(host.shape[0], 3, -1)
+    def _rank_scan(self, host, ctx, batch):
+        # (B * V, 3, K) -> (B, V, 3, K): a query's hypothesis rows rank together.
+        host = host.reshape(-1, len(self.hyps), 3, host.shape[-1])
         ov = (self.override_unstructured
               if self.override_unstructured is not None else self.override)
-        for b, (rigid, fut) in enumerate(items):
+        for out_v, (*_, rigid, fut) in zip(host, batch):
             try:
-                ranked = self._rank(host[b])
+                ranked = self._rank(out_v, max(2, self._k()))
                 if api.scan_overrides(ranked[1], rigid[1], override=ov):
                     self._count("overridden")
                     result = ranked
@@ -675,18 +646,6 @@ class EscalatingMatchServer:
                 self._resolve(fut, result, True)
             except Exception as e:
                 _fail([fut], e)
-
-    # ---- ranking --------------------------------------------------------
-    def _k(self) -> int:
-        return self.top_k if self.top_k else self.cfg.top_k
-
-    def _rank(self, out_b: np.ndarray):
-        """One query's (3, K) rows ranked one deeper than top_k: the margin
-        gate reads the runner-up."""
-        scores, idx, offs = out_b
-        real = idx < self.ts.n_real
-        return _rank_dedup(scores[real], idx[real], offs[real], self.ts.db.track_ids,
-                           max(2, self._k()))
 
     def _resolve(self, fut: Future, ranked, escalated: bool) -> None:
         if fut.set_running_or_notify_cancel():

@@ -979,7 +979,8 @@ def test_spec_scan_session_on_card_equals_plain(dev, monkeypatch):
     _build.reset_launch_counts()
     card = _drive(StreamingSession(ts, filters, cfg, query_prints=128, chunk_prints=32),
                   live, step)
-    assert all(_build.LAUNCHES[k] for k in ("cqt", "fingerprint", "coarse_scan", "fine_rescan"))
+    assert all(_build.LAUNCHES[k] for k in ("cqt", "fingerprint", "coarse_scan_batch",
+                                            "fine_rescan"))
     _plain_on_card(monkeypatch)
     _plain_matcher_on_card(monkeypatch)
     _build.reset_launch_counts()

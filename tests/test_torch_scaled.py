@@ -25,6 +25,7 @@ from hpfw_tpu_torch.config import HpfwConfig as PortConfig
 from hpfw_tpu_torch.match import scaled, stretch
 from hpfw_tpu_torch.match.scaled import TwoStageDB
 from hpfw_tpu_torch.parallel.mesh import Mesh
+from hpfw_tpu_torch.utils import profiling
 
 SMALL = dict(frame_len=2048, fmin=380.0, n_bins=73, hop=256, context_w=8,
              delta_lag=4, db_downsample=8)
@@ -413,6 +414,37 @@ def test_mesh_stretch_scan_and_variant_stacks_equal_reference(data, surface):
         for got, want in zip(p.match_batch(stacks, top_k=5, pool=8),
                              j.match_batch(stacks, top_k=5, pool=8)):
             _same(got, want)
+
+
+@pytest.mark.parametrize("mesh", [None, 8], ids=["one_device", "mesh8"])
+@pytest.mark.parametrize("query", ["stack", "tempo_scan"])
+def test_match_is_one_dispatch_of_match_batch(data, query, mesh):
+    """match of a (V, N, 2) stack, or of one query under the tempo scan,
+    records one match.dispatch span and answers as match_batch on that
+    batch of one; each answer's variant index is the first variant whose
+    row holds that track at that score and offset."""
+    _, p, _ = (_mesh_pair if mesh else _pair)(data, "query_phases_4")
+    q = data[2][1]
+    if query == "stack":
+        kw = dict(top_k=5, pool=8)
+        stack = stretch.print_variants(q, [0.98, 1.0, 1.02])[0]
+        arg, batch = stack, stack[None]
+    else:
+        kw = dict(top_k=5, pool=8, stretch_span=0.02)
+        stack = stretch.print_variants(q, stretch.stretch_grid(0.02, p.db.cfg.stretch_step))[0]
+        arg, batch = q, q[None]
+    first = profiling.new_id()
+    got = p.match(arg, return_variant=True, **kw)
+    assert [s.name for s in profiling.spans()
+            if s.sid > first and s.name == "match.dispatch"] == ["match.dispatch"]
+    _same(got[:3], p.match_batch(batch, **kw)[0])
+    rows = p.dispatch_batch(torch.from_numpy(stack.view(np.int32)), pool=8).numpy()
+    assert len(got[0]) == 5
+    for tid, score, off, var in zip(*got):
+        idx = p.db.index_of(tid)
+        holds = [(v, j) for v in range(len(stack)) for j in range(rows.shape[-1])
+                 if rows[v, 1, j] == idx and rows[v, 0, j] == score]
+        assert (var, off) == (holds[0][0], rows[holds[0][0], 2, holds[0][1]])
 
 
 def test_mesh_of_one_equals_unsharded(data):

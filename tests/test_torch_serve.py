@@ -449,3 +449,55 @@ def test_escalating_server_spans(escalating):
         assert {w.parent for w in waits} == set(mine)
         for name in ("serve.extract", "serve.rank"):
             assert sorted(s.parent for s in spans[name] if s.attrs["cls"] == cls) == sorted(mine)
+
+
+class _DeviceStepFailed(RuntimeError):
+    pass
+
+
+@pytest.mark.parametrize("case", ["match_server", "rigid", "scan"])
+def test_failed_device_step_fails_its_batch_only(served, escalating, case, monkeypatch):
+    """One batch's dispatch_batch raises (the rigid or the scan one of an
+    escalating server, every query escalated): that batch's futures fail
+    with that exception and its device slot frees (depth=1, so a lost slot
+    would starve the next batch); the next submission is answered as the
+    direct match, and close() returns."""
+    if case == "match_server":
+        _, ts, queries = served
+        make = lambda: MatchServer(ts, queries[0].shape[0], max_batch=2, max_wait_ms=200.0,
+                                   depth=1, pool=16)
+        first, nxt = [queries[0], queries[1]], queries[2]
+        want = ts.match(nxt, pool=16)
+    else:
+        cfg2, filters, _, ts, pcms, _ = escalating
+        kw = dict(top_k=2, threshold=1.01, hi_sim=1.01)
+        make = lambda: EscalatingMatchServer(ts, filters, pcms.shape[1], max_batch=2,
+                                             max_wait_ms=200.0, scan_batch=2,
+                                             scan_wait_ms=200.0, depth=1, pool=16, **kw)
+        first, nxt = [pcms[0], pcms[2]], pcms[1]
+        want = api.match_scan_escalating(nxt[None], filters, ts, _port(cfg2), pool=16,
+                                         **kw)[0]
+    boom, calls = _DeviceStepFailed("device step failed"), []
+    dispatch = ts.dispatch_batch
+
+    def flaky(q, **k):
+        calls.append(q.shape[0])
+        if len(calls) == (2 if case == "scan" else 1):
+            raise boom
+        return dispatch(q, **k)
+
+    monkeypatch.setattr(ts, "dispatch_batch", flaky)
+    srv = make()
+    try:
+        failed = [srv.submit(x) for x in first]
+        assert all(f.exception(timeout=600) is boom for f in failed)
+        got = srv.submit(nxt).result(timeout=120)
+    finally:
+        srv.close()
+    threads = [srv._thread] if case == "match_server" else [srv._rigid_thread,
+                                                            srv._scan_thread]
+    assert not any(t.is_alive() for t in threads)
+    _same(got, want)
+    if case != "match_server":
+        assert got[3] is True
+        assert calls[:2] == ([2, 2 * len(srv.hyps)] if case == "scan" else [2, 1])
