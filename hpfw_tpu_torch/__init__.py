@@ -11,7 +11,7 @@ Public surface (hpfw_tpu's, less tests/test_torch_surface.py's BY_DESIGN list):
     match(query, db)      -> ranked track IDs
     build_db / FingerprintDB.save/load
     build_db_from_files(paths) -> FingerprintDB          (native decode, io/ingest.py)
-    fingerprint_stream(batches) -> hashprints            (two batches in flight)
+    fingerprint_stream(batches) -> hashprints            (staged ahead by a thread)
     TwoStageDB(db).match / match_batch / save / load   (catalog scale)
     TwoStageDB.warmup / bundle_compile_cache            (serving warm-up)
     MatchServer(ts, n).submit -> future                 (serving)

@@ -4,7 +4,7 @@
     match(query, db)        -> ranked track IDs
     build_db(catalog)       -> FingerprintDB
     build_db_from_files(paths) -> FingerprintDB (native decode, io/ingest.py)
-    fingerprint_stream(batches) -> hashprints, two batches in flight
+    fingerprint_stream(batches) -> hashprints, staged ahead by a thread
     learn_filters(corpus)   -> projection filters
 
 plus the rendition scans (fingerprint_scan_batch, match_scan_escalating over
@@ -20,7 +20,14 @@ versions. Nothing falls back from one to the other.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,8 +38,8 @@ from .match import matcher
 from .match.align import structure_evidence
 from .match.stretch import hypothesis_grid, pitch_grid, stretch_grid
 from .ops import fingerprint as fp_ops
-from .ops import frontend, fused
-from .utils.profiling import trace
+from .ops import _build, frontend, fused
+from .utils.profiling import record, trace
 
 
 def default_device() -> torch.device:
@@ -176,6 +183,125 @@ def _wait(ready) -> None:
         ready.synchronize()
 
 
+class _Staged(NamedTuple):
+    """A batch ready for the caller: its PCM on the device, and the event its
+    upload ends with (None on the CPU, where pcms is the host tensor)."""
+    pcms: torch.Tensor
+    ready: torch.cuda.Event | None
+
+
+# Batches the staging queue holds for fingerprint_stream's caller; the staging
+# thread works on one more, so it runs one to two batches ahead of the launches.
+_STAGE_DEPTH = 1
+# The least bytes a staging chunk holds: a batch is cut into one chunk a copy
+# thread, but no smaller than this.
+_STAGE_MIN_CHUNK_BYTES = 4 << 20
+
+
+def _stage_threads() -> int:
+    """Threads that copy a batch's chunks into pinned memory: one a CPU this
+    process may run on. The copy is bound by each core's memory bandwidth,
+    and the caller sleeps while it waits for a result (PERF.md, section 6)."""
+    return len(os.sched_getaffinity(0))
+
+
+def _stream_copy(copy, dst: np.ndarray, src: np.ndarray) -> None:
+    """One chunk into pinned memory by csrc/stage.cu's streaming stores, with
+    the GIL released; the arguments keep both buffers alive while it runs."""
+    copy(dst.ctypes.data, src.ctypes.data, src.nbytes)
+
+
+class _Stager:
+    """fingerprint_stream's staging thread and the queue it fills.
+
+    The thread pulls each batch from the input, checks it and stages it: on
+    a card, a copy into pinned memory (torch's caching host allocator) in one
+    chunk a copy thread by streaming stores (csrc/stage.cu), each chunk's
+    upload queued on a copy stream as it lands, and one event recorded after
+    the last; on the CPU the host tensor itself. Each staged batch is one `extract.upload` span of the staging
+    thread. The input's end, or an exception from the input or the staging,
+    follows the batches before it through the queue. close() stops the
+    thread and joins it, and with it the copy threads.
+    """
+
+    def __init__(self, batches, dev: torch.device):
+        self._batches = iter(batches)
+        self._dev = dev
+        self._copy = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        # Built here, on the caller's thread, before any copy thread asks.
+        self._copy_fn = _build.library().hpfw_stream_copy if self._copy is not None else None
+        self._threads = _stage_threads()
+        self._queue: queue.Queue = queue.Queue(maxsize=_STAGE_DEPTH)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="hpfw-stage", daemon=True)
+        self._thread.start()
+
+    def __enter__(self) -> "_Stager":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def get(self):
+        """The next staged batch; None at the input's end; or the exception
+        that ended it. A batch's wait is an `extract.stage_wait` span."""
+        t0 = time.perf_counter_ns()
+        item = self._queue.get()
+        if isinstance(item, _Staged):
+            record("extract.stage_wait", t0, time.perf_counter_ns())
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        # The thread puts at most one more item once it can see the stop: make
+        # room for it, then wait for the thread.
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join()
+
+    def _run(self) -> None:
+        with ThreadPoolExecutor(self._threads, thread_name_prefix="hpfw-stage") \
+                if self._copy is not None else contextlib.nullcontext() as pool:
+            while not self._stop.is_set():
+                try:
+                    item = self._stage(next(self._batches), pool)
+                except StopIteration:
+                    item = None
+                except Exception as exc:  # raised to the caller in its place
+                    item = exc
+                self._queue.put(item)
+                if not isinstance(item, _Staged):
+                    return
+
+    def _stage(self, batch, pool) -> _Staged:
+        pcm = np.ascontiguousarray(batch, dtype=np.float32)
+        if pcm.ndim != 2:
+            raise ValueError(f"expected (B, S) PCM batches, got shape {pcm.shape}")
+        if self._copy is None:
+            t0 = time.perf_counter_ns()
+            record("extract.upload", t0, t0)
+            return _Staged(torch.from_numpy(pcm), None)
+        with torch.cuda.device(self._dev), torch.cuda.stream(self._copy):
+            pinned = torch.empty(pcm.shape, dtype=torch.float32, pin_memory=True).view(-1)
+            pcms = torch.empty(pcm.shape, dtype=torch.float32, device=self._dev)
+            src, mid, dst = pcm.reshape(-1), pinned.numpy(), pcms.view(-1)
+            step = max(_STAGE_MIN_CHUNK_BYTES // src.itemsize, -(-src.size // self._threads))
+            chunks = [(a, min(a + step, src.size)) for a in range(0, src.size, step)]
+            t0 = time.perf_counter_ns()
+            copies = [pool.submit(_stream_copy, self._copy_fn, mid[a:b], src[a:b])
+                      for a, b in chunks]
+            for (a, b), copied in zip(chunks, copies):
+                copied.result()
+                dst[a:b].copy_(pinned[a:b], non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy)
+            record("extract.upload", t0, time.perf_counter_ns())
+        return _Staged(pcms, ready)
+
+
 def fingerprint_stream(
     batches,
     filters,
@@ -183,37 +309,51 @@ def fingerprint_stream(
     *,
     device: str | torch.device | None = None,
 ):
-    """Fingerprint an iterator of (B, S) PCM batches with two batches in
-    flight; yields (B, N, 2) uint32 a batch, in order.
+    """Fingerprint an iterator of (B, S) PCM batches, staged ahead of the
+    launches by a thread of the call; yields (B, N, 2) uint32 a batch, in
+    order.
 
-    On a card, batch i + 1 uploads from pinned memory on a copy stream while
-    batch i computes on the current stream (the compute stream waits for the
-    upload's event), and each result comes back by a non-blocking copy into
-    pinned memory: the generator waits only for the batch it yields. On the
-    CPU the same code runs with no streams. Each batch's staging copy and
-    queued upload is an `extract.upload` span (utils/profiling.py).
+    A staging thread (_Stager) pulls and checks each batch and, on a card,
+    copies it into pinned memory in chunks and uploads each chunk on a copy
+    stream as it lands, one to two batches ahead of the caller. The caller
+    launches each batch's kernels on the current stream once its upload's
+    event is reached, and keeps two batches in flight: each result comes
+    back by a non-blocking copy into pinned memory, and the generator waits,
+    asleep, only for the batch it yields. On the CPU the same code runs with no
+    streams and no copy. An exception from the input (or a batch that is
+    not 2-D) is raised after every earlier batch has been yielded. Closing
+    the generator stops and joins the staging thread.
     """
     dev = _resolve_device(device, filters)
     filt = _filters_on(filters, cfg, dev)
-    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     pending: list[tuple[torch.Tensor, torch.cuda.Event | None]] = []
-    for batch in batches:
-        host = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
-        if host.dim() != 2:
-            raise ValueError(f"expected (B, S) PCM batches, got shape {tuple(host.shape)}")
-        with trace("extract.upload"):
-            pcms, compute = host, None
-            if copy_stream is not None:
+    with _Stager(batches, dev) as stager:
+        while isinstance(item := stager.get(), _Staged):
+            compute = None
+            if item.ready is not None:
                 compute = torch.cuda.current_stream(dev)
-                with torch.cuda.stream(copy_stream):
-                    pcms = _upload(host, dev)
-                compute.wait_stream(copy_stream)
-                pcms.record_stream(compute)  # read on compute, made on the copy stream
-        pending.append(_to_host(fingerprint_batch_device(pcms, filt, cfg), compute))
-        if len(pending) >= 2:
-            yield _take(*pending.pop(0))
-    for item in pending:
-        yield _take(*item)
+                compute.wait_event(item.ready)
+                item.pcms.record_stream(compute)  # read on compute, made on the copy stream
+            pending.append(_to_host_sleeping(fingerprint_batch_device(item.pcms, filt, cfg),
+                                             compute))
+            if len(pending) >= 2:
+                yield _take(*pending.pop(0))
+        for out in pending:
+            yield _take(*out)
+        if item is not None:
+            raise item
+
+
+def _to_host_sleeping(out_dev: torch.Tensor, stream):
+    """_to_host with an event whose waiter sleeps: a waiter on _to_host's
+    event spins a core, which fingerprint_stream's copy threads need."""
+    if stream is None:
+        return out_dev, None
+    out = torch.empty(out_dev.shape, dtype=out_dev.dtype, pin_memory=True)
+    out.copy_(out_dev, non_blocking=True)
+    ready = torch.cuda.Event(blocking=True)
+    ready.record(stream)
+    return out, ready
 
 
 def _take(out: torch.Tensor, ready) -> np.ndarray:

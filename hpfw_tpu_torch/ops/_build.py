@@ -150,6 +150,8 @@ def library() -> ctypes.CDLL:
     lib.hpfw_fine_rescan.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr, ptr, i32,
                                      i32, ptr, ptr, ptr]
     lib.hpfw_row_sum.argtypes = [ptr, i64, i64, ptr, ptr]
+    lib.hpfw_stream_copy.argtypes = [ptr, ptr, ctypes.c_size_t]
+    lib.hpfw_stream_copy.restype = None
     for fn in (lib.hpfw_cqt, lib.hpfw_fingerprint, lib.hpfw_score_tracks,
                lib.hpfw_coarse_scan, lib.hpfw_fine_rescan, lib.hpfw_row_sum):
         fn.restype = i32

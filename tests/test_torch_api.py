@@ -1,5 +1,8 @@
 """The port's public API on the CPU vs hpfw_tpu.api: the slice end to end."""
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -149,3 +152,130 @@ def test_fingerprint_stream_equals_batches(cfg, catalog, n_batches):
                 gi, wi, oracle.delta_margins(pcm, filters, cfg)[:gi.shape[0]])
     with pytest.raises(ValueError, match="PCM batches"):
         next(api.fingerprint_stream([np.zeros(n, np.float32)], filters, port, device="cpu"))
+
+
+def _stream_batches(tracks, shapes):
+    """(B, S) batches of the given shapes, cut from the catalog at offsets of
+    their own."""
+    return [np.stack([tracks[(i + j) % len(tracks)][97 * i:97 * i + s] for j in range(b)])
+            for i, (b, s) in enumerate(shapes)]
+
+
+def _stage_threads() -> list:
+    return [t for t in threading.enumerate() if t.name.startswith("hpfw-stage")]
+
+
+class _Counting:
+    """An iterator over batches that counts how far it was advanced."""
+
+    def __init__(self, batches):
+        self.batches, self.pulled = batches, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.pulled == len(self.batches):
+            raise StopIteration
+        self.pulled += 1
+        return self.batches[self.pulled - 1]
+
+
+def test_fingerprint_stream_shapes_change_between_batches(cfg, catalog):
+    """Batch size and length change from batch to batch: each yielded batch
+    equals fingerprint_batch of its own batch, in order, and no staging
+    thread is left once the stream ends."""
+    tracks, filters = catalog
+    port = _port(cfg)
+    shapes = [(2, 12000), (1, 20000), (3, 12000), (1, 9000), (2, 20000), (3, 9000)]
+    batches = _stream_batches(tracks, shapes)
+    got = list(api.fingerprint_stream(_Counting(batches), filters, port, device="cpu"))
+    assert [g.shape for g in got] == [(b, port.n_hashprints(s), 2) for b, s in shapes]
+    for g, b in zip(got, batches):
+        np.testing.assert_array_equal(g, api.fingerprint_batch(b, filters, port, device="cpu"))
+    assert not _stage_threads()
+
+
+@pytest.mark.parametrize("how", ["close", "break"])
+def test_fingerprint_stream_early_close_joins_the_stager(cfg, catalog, how):
+    """Closing the generator after its first batch (close(), or leaving a for
+    loop) stops and joins the staging thread. By then the input was advanced
+    at most: the batch yielded, the one in flight beside it, the queue's
+    _STAGE_DEPTH and the one the thread was staging."""
+    tracks, filters = catalog
+    feed = _Counting(_stream_batches(tracks, [(1, 9000)] * 20))
+    stream = api.fingerprint_stream(feed, filters, _port(cfg), device="cpu")
+    if how == "close":
+        first = next(stream)
+        stream.close()
+    else:
+        for first in stream:
+            break
+        del stream
+    assert first.shape[0] == 1
+    assert not _stage_threads()
+    assert 1 <= feed.pulled <= 1 + 1 + api._STAGE_DEPTH + 1
+
+
+def test_fingerprint_stream_many_callers_close_at_random(cfg, catalog):
+    """Twelve threads, more than the CPUs, each stream six batches and leave
+    after a count of their own, under a short switch interval: every batch
+    yielded equals fingerprint_batch and no staging thread is left."""
+    tracks, filters = catalog
+    port = _port(cfg)
+    batches = _stream_batches(tracks, [(1 + i % 2, 9000) for i in range(6)])
+    want = [api.fingerprint_batch(b, filters, port, device="cpu") for b in batches]
+    faults = []
+
+    def caller(stop_after):
+        try:
+            for k, out in enumerate(api.fingerprint_stream(iter(batches), filters, port,
+                                                           device="cpu")):
+                np.testing.assert_array_equal(out, want[k])
+                if k == stop_after:
+                    break
+        except Exception as exc:
+            faults.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=caller, args=(i % 7,)) for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not faults, faults
+    assert not _stage_threads()
+
+
+@pytest.mark.parametrize("fault", ["input_raises", "one_dimensional"])
+@pytest.mark.parametrize("k", [0, 3])
+def test_fingerprint_stream_error_after_earlier_batches(cfg, catalog, fault, k):
+    """An exception from the input at batch k, or a 1-D batch k, reaches the
+    caller after batches 0..k-1 have been yielded, each equal to
+    fingerprint_batch; no staging thread is left."""
+    tracks, filters = catalog
+    port = _port(cfg)
+    batches = _stream_batches(tracks, [(2, 9000)] * 6)
+
+    def feed():
+        for i, b in enumerate(batches):
+            if i == k:
+                if fault == "input_raises":
+                    raise RuntimeError("input failed at batch k")
+                b = b[0]
+            yield b
+
+    got = []
+    err = RuntimeError if fault == "input_raises" else ValueError
+    with pytest.raises(err, match="batch k" if fault == "input_raises" else "PCM batches"):
+        for out in api.fingerprint_stream(feed(), filters, port, device="cpu"):
+            got.append(out)
+    assert len(got) == k
+    for g, b in zip(got, batches):
+        np.testing.assert_array_equal(g, api.fingerprint_batch(b, filters, port, device="cpu"))
+    assert not _stage_threads()

@@ -10,6 +10,7 @@ Imports nothing of jax or hpfw_tpu.
 
 import functools
 import threading
+import time
 import warnings
 
 import numpy as np
@@ -1046,6 +1047,43 @@ def test_fingerprint_stream_on_card_equals_batch(dev):
     got = list(api.fingerprint_stream(iter(batches), filters, cfg, device=dev))
     assert _build.LAUNCHES["cqt"] == _build.LAUNCHES["fingerprint"] == sum(map(len, batches))
     assert len(got) == len(batches)
+    for g, b in zip(got, batches):
+        np.testing.assert_array_equal(g, api.fingerprint_batch(b, filters, cfg, device=dev))
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 63, 64, 65, 1000, (1 << 20) + 3])
+def test_stream_copy_equals_the_source(dev, n):
+    """csrc/stage.cu's streaming-store copy, the staging's host copy, at every
+    head and tail length and alignment: the source's bytes, none past them."""
+    rng = np.random.default_rng(n)
+    src = rng.integers(0, 256, n + 16, dtype=np.uint8)
+    for so, do in ((0, 0), (3, 5), (16, 1)):
+        dst = np.zeros(n + 32, np.uint8)
+        _build.library().hpfw_stream_copy(dst[do:].ctypes.data, src[so:].ctypes.data, n)
+        np.testing.assert_array_equal(dst[do:do + n], src[so:so + n])
+        assert not dst[:do].any() and not dst[do + n:].any()
+
+
+def test_fingerprint_stream_on_card_reuses_staging_blocks(dev):
+    """Ten batches of two shapes, each several staging chunks (the second's
+    last chunk shorter), so each pinned block is reused, read by a consumer
+    that sleeps between batches: every batch equals fingerprint_batch bit
+    for bit, K1 and K2 run once a track, and no staging thread is left."""
+    cfg = HpfwConfig()
+    filters = _filters(cfg)
+    base = synth.synth_track(81, 240.0, cfg)
+    shapes = [(4, base.shape[0]), (7, 150 * cfg.sample_rate + 77)]
+    batches = [np.stack([np.roll(base, 1000 * (5 * i + j))[:shapes[i % 2][1]]
+                         for j in range(shapes[i % 2][0])]) for i in range(10)]
+    assert all(b.nbytes >= 2 * api._STAGE_MIN_CHUNK_BYTES for b in batches)
+    _build.reset_launch_counts()
+    got = []
+    for out in api.fingerprint_stream(iter(batches), filters, cfg, device=dev):
+        got.append(out)
+        time.sleep(0.05)
+    assert _build.LAUNCHES["cqt"] == _build.LAUNCHES["fingerprint"] == sum(map(len, batches))
+    assert len(got) == len(batches)
+    assert not [t for t in threading.enumerate() if t.name.startswith("hpfw-stage")]
     for g, b in zip(got, batches):
         np.testing.assert_array_equal(g, api.fingerprint_batch(b, filters, cfg, device=dev))
 

@@ -218,3 +218,18 @@ def test_fingerprint_stream_makes_one_upload_span_a_batch():
     out = list(api.fingerprint_stream(iter(batches), small_filters(), cfg, device="cpu"))
     assert len(out) == 3
     assert len(since(first, "extract.upload")) == 3
+
+
+def test_fingerprint_stream_spans_a_batch():
+    """One `extract.upload` span (staging thread) and one `extract.stage_wait`
+    span (the caller's thread) a batch: the input's end makes none."""
+    cfg = SMALL
+    batches = [np.stack(synth.synth_catalog(1 + i % 2, 1.0, cfg)) for i in range(4)]
+    first = profiling.new_id()
+    out = list(api.fingerprint_stream(iter(batches), small_filters(), cfg, device="cpu"))
+    assert len(out) == 4
+    uploads, waits = since(first, "extract.upload"), since(first, "extract.stage_wait")
+    assert len(uploads) == len(waits) == 4
+    assert {s.thread for s in waits} == {threading.get_ident()}
+    assert threading.get_ident() not in {s.thread for s in uploads}
+    assert all(s.t0 <= s.t1 for s in uploads + waits)
