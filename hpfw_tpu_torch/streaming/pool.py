@@ -14,6 +14,11 @@ Counterpart of hpfw_tpu/streaming/pool.py. StreamingPool runs up to
 
 while each stream's vote integration, confidence and hypothesis stay those
 of a lone StreamingSession fed the same chunks.
+
+Spans (utils/profiling.py, on the caller's thread): `stream.feed` a feed
+(`streams` given chunks, `ready` advanced), `stream.extract` a batched
+extraction (`rows`), and per bucket `stream.match` (`bucket`, `rows`,
+`padded`: the batch as matched) and `stream.vote` (`streams`).
 """
 
 from __future__ import annotations
@@ -26,12 +31,13 @@ import torch
 from .. import api
 from ..config import HpfwConfig
 from ..match.scaled import TwoStageDB
+from ..utils.profiling import trace
 from .session import (StreamHypothesis, default_buckets, integrate_vote,
                       latency_percentiles)
 
 
 class _StreamState:
-    __slots__ = ("buf", "ring", "votes", "last", "best")
+    __slots__ = ("buf", "ring", "votes", "last", "best", "hit", "query")
 
     def __init__(self):
         self.buf = np.zeros(0, dtype=np.float32)
@@ -39,6 +45,8 @@ class _StreamState:
         self.votes: dict[str, float] = {}
         self.last: dict[str, tuple[int, int]] = {}
         self.best: StreamHypothesis | None = None
+        self.hit: tuple[str, int, int] | None = None    # the last match's top hit
+        self.query: np.ndarray | None = None            # the prints it matched
 
 
 class StreamingPool:
@@ -90,6 +98,17 @@ class StreamingPool:
     def stream_ids(self):
         return list(self._streams)
 
+    def last_hit(self, sid: str) -> tuple[str, int, int] | None:
+        """(track_id, score, offset) of the stream's most recent match's top
+        hit, the one its vote took; None before its first match."""
+        return self._streams[sid].hit
+
+    def query(self, sid: str) -> np.ndarray | None:
+        """A copy of the (n, 2) uint32 prints of the ring the stream's most
+        recent match queried; None before its first match."""
+        q = self._streams[sid].query
+        return None if q is None else q.copy()
+
     # -- the tick -----------------------------------------------------------
 
     def feed(self, chunks: dict[str, np.ndarray]) -> dict:
@@ -97,40 +116,43 @@ class StreamingPool:
         allow and at most one batched match per bucket; return {sid:
         StreamHypothesis or None}."""
         t0 = time.perf_counter()
-        unknown = [sid for sid in chunks if sid not in self._streams]
-        if unknown:
-            raise ValueError(
-                f"unknown stream ids {unknown!r}; add_stream() them first "
-                f"(live: {sorted(self._streams)!r})")
-        for sid, pcm in chunks.items():
-            st = self._streams[sid]
-            st.buf = np.concatenate([st.buf, np.asarray(pcm, dtype=np.float32).reshape(-1)])
-        # Drain every full window (batched extraction) so slow feeders cannot
-        # stall fast ones, then match at most once per feed call: one vote per
-        # feed, as a lone StreamingSession casts.
-        advanced: set = set()
-        while True:
-            ready = [sid for sid, st in self._streams.items()
-                     if st.buf.shape[0] >= self.window_samples]
-            if not ready:
-                break
-            self._extract_tick(ready)
-            advanced.update(ready)
-        if advanced:
-            self._match_tick(sorted(advanced))
-            self.tick_latencies_ms.append((time.perf_counter() - t0) * 1e3)
+        with trace("stream.feed", streams=len(chunks)) as span:
+            unknown = [sid for sid in chunks if sid not in self._streams]
+            if unknown:
+                raise ValueError(
+                    f"unknown stream ids {unknown!r}; add_stream() them first "
+                    f"(live: {sorted(self._streams)!r})")
+            for sid, pcm in chunks.items():
+                st = self._streams[sid]
+                st.buf = np.concatenate([st.buf, np.asarray(pcm, dtype=np.float32).reshape(-1)])
+            # Drain every full window (batched extraction) so slow feeders cannot
+            # stall fast ones, then match at most once per feed call: one vote per
+            # feed, as a lone StreamingSession casts.
+            advanced: set = set()
+            while True:
+                ready = [sid for sid, st in self._streams.items()
+                         if st.buf.shape[0] >= self.window_samples]
+                if not ready:
+                    break
+                self._extract_tick(ready)
+                advanced.update(ready)
+            span.attrs["ready"] = len(advanced)
+            if advanced:
+                self._match_tick(sorted(advanced))
+                self.tick_latencies_ms.append((time.perf_counter() - t0) * 1e3)
         return {sid: st.best for sid, st in self._streams.items()}
 
     def _extract_tick(self, ready: list) -> None:
         """One batched extraction over the ready streams' windows."""
-        windows = np.stack([self._streams[sid].buf[:self.window_samples] for sid in ready])
-        prints = api._to_numpy_prints(api.fingerprint_batch_device(
-            torch.from_numpy(windows).to(self.device), self._filters, self.cfg))
-        for slot, sid in enumerate(ready):
-            st = self._streams[sid]
-            st.ring = np.concatenate([st.ring, prints[slot, :self.chunk_prints]])
-            st.ring = st.ring[-self.query_prints:]
-            st.buf = st.buf[self.step_samples:]
+        with trace("stream.extract", rows=len(ready)):
+            windows = np.stack([self._streams[sid].buf[:self.window_samples] for sid in ready])
+            prints = api._to_numpy_prints(api.fingerprint_batch_device(
+                torch.from_numpy(windows).to(self.device), self._filters, self.cfg))
+            for slot, sid in enumerate(ready):
+                st = self._streams[sid]
+                st.ring = np.concatenate([st.ring, prints[slot, :self.chunk_prints]])
+                st.ring = st.ring[-self.query_prints:]
+                st.buf = st.buf[self.step_samples:]
 
     def _match_tick(self, ready: list) -> None:
         """Group matchable streams by query bucket; one batched match per group."""
@@ -144,26 +166,32 @@ class StreamingPool:
             t0 = time.perf_counter()
             results = self._match_batch(queries)
             self.match_latencies_ms.append((time.perf_counter() - t0) * 1e3)
-            for sid, (ids, scores, offs) in zip(sids, results):
-                st = self._streams[sid]
-                if len(ids):
-                    st.best = integrate_vote(st.votes, st.last, ids, scores, offs, bucket,
-                                             decay=self.vote_decay, floor=self.vote_floor)
+            with trace("stream.vote", streams=len(sids)):
+                for sid, query, (ids, scores, offs) in zip(sids, queries, results):
+                    st = self._streams[sid]
+                    st.query, st.hit = query, None
+                    if len(ids):
+                        st.hit = (ids[0], int(scores[0]), int(offs[0]))
+                        st.best = integrate_vote(st.votes, st.last, ids, scores, offs,
+                                                 bucket, decay=self.vote_decay,
+                                                 floor=self.vote_floor)
 
     def _match_batch(self, queries: np.ndarray):
-        if isinstance(self.db, TwoStageDB):
-            # Padded to capacity with the first query, so every bucket has one
-            # batch shape; the pad rows are discarded.
-            n = queries.shape[0]
-            if n < self.capacity:
-                pad = np.broadcast_to(queries[:1], (self.capacity - n,) + queries.shape[1:])
-                queries = np.concatenate([queries, pad])
-            return self.db.match_batch(queries, top_k=1)[:n]
-        # A ShardedDB's own match or a dense FingerprintDB's scan: each query
-        # alone, no padding.
-        if hasattr(self.db, "match"):
-            return [self.db.match(q, top_k=1) for q in queries]
-        return [api.match(q, self.db, top_k=1) for q in queries]
+        n = queries.shape[0]
+        with trace("stream.match", bucket=queries.shape[1], rows=n, padded=n) as span:
+            if isinstance(self.db, TwoStageDB):
+                # Padded to capacity with the first query, so every bucket has
+                # one batch shape; the pad rows are discarded.
+                if n < self.capacity:
+                    pad = np.broadcast_to(queries[:1], (self.capacity - n,) + queries.shape[1:])
+                    queries = np.concatenate([queries, pad])
+                    span.attrs["padded"] = self.capacity
+                return self.db.match_batch(queries, top_k=1)[:n]
+            # A ShardedDB's own match or a dense FingerprintDB's scan: each
+            # query alone, no padding.
+            if hasattr(self.db, "match"):
+                return [self.db.match(q, top_k=1) for q in queries]
+            return [api.match(q, self.db, top_k=1) for q in queries]
 
     def latency_stats(self) -> dict:
         return dict(latency_percentiles(match=self.match_latencies_ms,

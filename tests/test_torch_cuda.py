@@ -8,6 +8,7 @@ machine has no jax, so run this file there without the repo's conftest:
 Imports nothing of jax or hpfw_tpu.
 """
 
+import dataclasses
 import functools
 import threading
 import time
@@ -1372,4 +1373,72 @@ def test_resident_db_past_2_31_elements_equals_plain(dev, monkeypatch):
     assert db.host_bytes == 0
     assert not [s for s in profiling.spans() if s.name.startswith("db.") and s.sid > first]
     del ts, db, prints
+    torch.cuda.empty_cache()
+
+
+def test_pool_of_64_streams_over_resident_catalog_equals_reference(dev):
+    """A StreamingPool of 64 streams over a TwoStageDB of a resident
+    FingerprintDB of 100,000 x 2,583 prints under catalog_scale(pack4), 16
+    rows holding the prints of 30 s tracks: each stream plays a planted track
+    from its own start with noise 10 dB below, 0.743 s a feed. After every
+    feed each stream's last_hit is the plain reference's top-1 of its query
+    (portbench/reference/matcher.py, float32), and every hypothesis the
+    pool returned is reference/streams.py's replay of the stream's hits."""
+    from portbench.reference import matcher as reference
+    from portbench.reference import streams as vote_reference
+    from portbench.reference.extract import matmul_precision
+    from hpfw_tpu_torch import StreamingPool
+    from hpfw_tpu_torch.io import synth_device
+
+    cfg = HpfwConfig.catalog_scale(coarse_prefilter_pack4=True)
+    t, l, n_planted, seconds, n_streams = 100_000, 2583, 16, 30.0, 64
+    g = torch.Generator(device=dev).manual_seed(22)
+    prints = torch.randint(-2 ** 31, 2 ** 31, (t, l, 2), generator=g, device=dev,
+                           dtype=torch.int64).to(torch.int32)
+    lengths = torch.full((t,), l, dtype=torch.int32, device=dev)
+    filters = torch.from_numpy(_filters(cfg)).to(dev)
+    pcm = synth_device.synth_batch(np.arange(n_planted), seconds, cfg, device=dev)
+    rows = torch.randperm(t, generator=g, device=dev)[:n_planted]
+    planted = api.fingerprint_batch_device(pcm, filters, cfg)
+    prints[rows, :planted.shape[1]] = planted
+    prints[rows, planted.shape[1]:] = 0
+    lengths[rows] = planted.shape[1]
+    db = api.FingerprintDB(cfg, filters.cpu().numpy(), [str(i) for i in range(t)], prints,
+                           lengths, device=dev)
+    pool = StreamingPool(TwoStageDB(db), filters, cfg, capacity=n_streams)
+    noise = torch.randn(pcm.shape, generator=g, device=dev)
+    noise *= pcm.pow(2).mean(1, keepdim=True).sqrt() / noise.pow(2).mean(1, keepdim=True).sqrt()
+    audio = (pcm + noise * 10 ** (-10 / 20)).cpu().numpy()
+    starts = torch.randint(0, audio.shape[1] // 2, (n_streams,), generator=g, device=dev)
+    sids = [f"s{i}" for i in range(n_streams)]
+    for sid in sids:
+        pool.add_stream(sid)
+    ref = reference.Catalog(prints, lengths, dataclasses.asdict(cfg))
+    hits = {sid: [] for sid in sids}
+    at = [int(s) for s in starts.tolist()]
+    for f in range(8):
+        size = pool.window_samples + 2 * pool.step_samples if f == 0 else pool.step_samples
+        hyps = pool.feed({sid: audio[i % n_planted, at[i]:at[i] + size]
+                          for i, sid in enumerate(sids)})
+        at = [a + size for a in at]
+        queries = np.stack([pool.query(sid) for sid in sids])
+        with matmul_precision(False):
+            want = ref.match(torch.from_numpy(queries.view(np.int32)).to(dev))
+        for sid, w, q in zip(sids, want, queries):
+            tr, sc, of = reference.rank(w[0], w[1], w[2], 1, t)
+            hit = pool.last_hit(sid)
+            assert (int(hit[0]), hit[1], hit[2]) == (int(tr[0]), int(sc[0]), int(of[0]))
+            hits[sid].append((hit[0], hit[1], hit[2], q.shape[0], hyps[sid]))
+    identified = 0
+    for i, sid in enumerate(sids):
+        replay = vote_reference.replay([h[:4] for h in hits[sid]], pool.vote_decay,
+                                       pool.vote_floor)
+        for (*_, got), want in zip(hits[sid], replay):
+            assert (got.track_id, got.score, got.offset) == want[:3]
+            assert abs(got.confidence - want[3]) <= 1e-9
+        identified += hits[sid][-1][4].track_id == str(int(rows[i % n_planted]))
+    # A stream whose excerpt starts in a quiet stretch of its track may not
+    # have locked yet; nearly all have.
+    assert identified >= 0.9 * n_streams
+    del pool, db, prints, ref
     torch.cuda.empty_cache()
