@@ -36,7 +36,8 @@ HpfwConfig.catalog_scale() (misphased plants), on a TwoStageDB on the card:
 then, on the catalog_scale() catalog, whose rows also hold 16 synthetic
 60 s stream tracks extracted on the card in phase 8:
  13. the pass-1 DB nibble-packed (5,248 -> 2,688 B a row): packed K4 equal to
-     its plain version and to int8 K4 on 8,192 rows x 16 lanes; the HBM
+     its plain version and to int8 K4 on 8,192 rows x 16 lanes (the long body)
+     and x 512 lanes of 128-print queries (the short body); the HBM
      load-floor probe (csrc/probe.cu) equal to torch.sum over the coarse DB
      and the packed pass-1 DB, and its GB/s;
  14. TwoStageDB(prefilter_pack4=True): all 20 queries through match and
@@ -211,6 +212,7 @@ SERVE_LOADS = (100.0, 200.0, 400.0, 800.0)
 SERVE_KW = dict(max_batch=16, max_wait_ms=4.0, depth=2, max_queue=64)
 STREAMS, STREAM_SECONDS, STREAM_SEED = 16, 60.0, 7000
 POOL_SIZES, CHUNK_PRINTS, QUERY_PRINTS = (8, 16), 32, 128
+SHORT_QUERIES = 256         # phase 13: queries of the short body, x 2 phases = 512 lanes
 POOL_WARM_TICKS, POOL_TICKS = QUERY_PRINTS // CHUNK_PRINTS + 3, 30
 WINDOW_OFFSETS = (0, 1, 37, 113, 4000)      # K2's 32-print windows cut from the 240 s spectrum
 SESSION_SECONDS = 30.0
@@ -1048,15 +1050,19 @@ def run_catalog(dev: torch.device, dense: dict) -> list[dict]:
     run_entry()
     run_warmup(synth_prints, filters_np)
     source = {"fine_rescan": "fine.cu", "row_sum": "probe.cu"}
+    # Both packed bodies launch under one counter; the short one has its own entry.
+    counter = {"coarse_scan_batch_packed_short": "coarse_scan_batch_packed"}
     replaces = {"coarse_scan": "hpfw_tpu/ops/pallas_coarse.py:82",
                 "coarse_scan_batch": "hpfw_tpu/ops/pallas_coarse.py:201",
                 "coarse_scan_batch_packed": "hpfw_tpu/ops/pallas_coarse.py:223",
+                "coarse_scan_batch_packed_short": "hpfw_tpu/ops/pallas_coarse.py:223",
                 "coarse_rescan": "hpfw_tpu/ops/pallas_coarse.py:201",
                 "fine_rescan": "hpfw_tpu/ops/pallas_fine.py:83",
                 "row_sum": "benchmarks/pass1_tune.py:97"}
     return [dict({"name": k, "route": "cuda",
                   "source": "hpfw_tpu_torch/csrc/" + source.get(k, "coarse.cu"),
-                  "replaces": replaces[k], "counter": k}, **kernels[k]) for k in replaces]
+                  "replaces": replaces[k], "counter": counter.get(k, k)}, **kernels[k])
+            for k in replaces]
 
 
 def match_in_batches(ts, qs_np) -> list:
@@ -1137,8 +1143,42 @@ def run_packed(ts, qs, qs_np, want, single, batched):
     check(err == 0, f"packed K4 differs from its plain version or from int8 K4 by {err}")
     shape = (f"{KERNEL_ROWS} packed rows x {lc} windows x {ts.prefilter_channels} channels, "
              f"{q1.shape[0]} lanes (8 queries x {ts.prefilter_phases} phases)")
+    long_lanes = coarse_scan.packed_geometry(lc, q1.shape[1], q1.shape[2]).lanes
+    check(long_lanes == coarse_scan.PACKED_LANES,
+          f"a {q1.shape[1]}-window query takes {long_lanes} lanes a block, not the long body")
     log(f"phase 13 coarse_scan_batch_packed: {shape}: equal to its plain version and to "
         f"int8 K4 on the unpacked rows")
+    # The pool's shape (phase 16): SHORT_QUERIES queries of QUERY_PRINTS prints,
+    # excerpts of the catalog queries, take the short body (nc <= PACKED_HALF).
+    starts = range(0, qs.shape[1] - QUERY_PRINTS + 1, 16)
+    qp = torch.cat([qs[:, s:s + QUERY_PRINTS] for s in starts])[:SHORT_QUERIES]
+    qp = _phase_variants(qp, stride=ts.stride, phases=ts.prefilter_phases,
+                         kind=ts.coarse_kind, channels=ts.prefilter_channels)[0]
+    qp = qp.reshape(-1, *qp.shape[2:])
+    short_lanes = coarse_scan.packed_geometry(lc, qp.shape[1], qp.shape[2]).lanes
+    check(short_lanes == coarse_scan.PACKED_SHORT_LANES,
+          f"a {qp.shape[1]}-window query takes {short_lanes} lanes a block, not the short body")
+
+    def short_k():
+        return coarse_scan.coarse_scan_batch_packed_kernel(qp, prow1, lc_true=lc)
+
+    def short_plain():
+        return coarse_scan.coarse_scan_batch_packed_ref(qp, prow1, lc_true=lc)
+
+    def short_int8():
+        return coarse_scan.coarse_scan_batch_kernel(qp, rows1, lc_true=lc)
+
+    got, ref, int8 = short_k(), short_plain(), short_int8()
+    torch.cuda.synchronize()
+    short_err = max(int((a - b).abs().max()) for a, b in zip(got + got, ref + int8))
+    check(short_err == 0, f"packed K4's short body differs from its plain version or from "
+          f"int8 K4 by {short_err}")
+    short_shape = (f"{KERNEL_ROWS} packed rows x {lc} windows x {ts.prefilter_channels} "
+                   f"channels, {qp.shape[0]} lanes ({qp.shape[0] // ts.prefilter_phases} "
+                   f"queries of {QUERY_PRINTS} prints, {qp.shape[1]} windows, x "
+                   f"{ts.prefilter_phases} phases)")
+    log(f"phase 13 coarse_scan_batch_packed short body: {short_shape}: equal to its plain "
+        f"version and to int8 K4 on the unpacked rows")
     dbs = {"coarse DB": ts.db_c, "packed pass-1 DB": packed1}
     probe_err = max(int((probe.row_sum_kernel(d) - torch.sum(d, dim=1, dtype=torch.int32))
                         .abs().max()) for d in dbs.values())
@@ -1169,6 +1209,15 @@ def run_packed(ts, qs, qs_np, want, single, batched):
         f"{i1:.4f}/{i2:.4f} ms on the same rows (turns int8, packed, packed, int8); "
         f"packed {k_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {pk_bound[0]:.4f} ms "
         f"({pk_bound[1]})")
+    si1, sp1, sp2, si2 = (cuda_ms(short_int8), cuda_ms(short_k), cuda_ms(short_k),
+                          cuda_ms(short_int8))
+    short_ms, short_plain_ms = timed_pair(short_k, short_plain)
+    short_bound = bound(nbytes(prow1, qp) + 8 * qp.shape[0] * KERNEL_ROWS,
+                        2 * KERNEL_ROWS * (lc - qp.shape[1] + 1) * qp.numel(), "int8_tensor")
+    log(f"phase 13 time packed K4 short body ({short_shape}): {sp1:.4f}/{sp2:.4f} ms against "
+        f"int8 K4 {si1:.4f}/{si2:.4f} ms on the same rows (turns int8, packed, packed, int8); "
+        f"packed {short_ms:.4f} ms, plain {short_plain_ms:.4f} ms, bound "
+        f"{short_bound[0]:.4f} ms ({short_bound[1]})")
     log(f"phase 13 time one match's pass 1 ({qm.shape[0]} lanes over all "
         f"{ts.db_c1.shape[0]} rows): int8 K4 {whole[0]:.4f}/{whole[3]:.4f} ms, packed K4 "
         f"{whole[1]:.4f}/{whole[2]:.4f} ms (turns int8, packed, packed, int8)")
@@ -1217,6 +1266,9 @@ def run_packed(ts, qs, qs_np, want, single, batched):
     return ts_p, {"coarse_scan_batch_packed": {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
                                          "bound_ms": pk_bound[0], "bound_by": pk_bound[1],
                                          "library_ms": None},
+            "coarse_scan_batch_packed_short": {
+                "max_abs_err": short_err, "ms": short_ms, "plain_ms": short_plain_ms,
+                "bound_ms": short_bound[0], "bound_by": short_bound[1], "library_ms": None},
             "row_sum": {"max_abs_err": probe_err, "ms": kt, "plain_ms": pt, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": lib}}
 

@@ -147,6 +147,23 @@ struct DivBy {
 // segment it held are written out. The grid is persistent (the blocks that
 // fit on the card at once), each block taking every gridDim.x-th unit of
 // work: a chunk of whole rows, or a long row.
+//
+// The short body (coarse_kernel<8, true>) takes queries of nc <= HALF
+// windows, such as a stream's 128-print ring (nc = 7), for which the halves
+// would multiply zeros: half 1 is empty and half 0 runs 16 k-steps for nc
+// windows. Its 64 rows are 64 lanes, row m lane lane0 + m holding its
+// windows 0 .. nc - 1, so A is [nc Cp / 16][64 rows][16 bytes] and a chain
+// runs nc Cp / 32 k-steps, k-step i (at Cp = 32) reading the planes at window
+// t0 + i. A tile yields all its TILE_N positions, and the last one reads nc -
+// 1 windows past them. Each thread keeps a best for each of its two lanes, the
+// accumulator rows 16 w + g and 16 w + 8 + g; a segment walk takes a chain's
+// columns in groups of 32, only those that meet the segment, masked only where
+// they are not inside its valid columns. The slots are [chunk_segs][64]. A
+// launch takes ceil(lanes / 64) blocks on grid.y, so each packed row is read
+// and unpacked once for up to 64 lanes. The wrapper picks the body from nc
+// alone (ops/coarse_scan.py packed_lanes) and passes its lanes a block. Past
+// the bound it pays for the lanes a block lacks of 64, n_win / n_off (161 /
+// 155 at nc = 7) and each chunk's last tile.
 
 constexpr int CHAIN_N = 96;             // positions a chain of products covers: N
 constexpr int CHAIN_B = CHAIN_N / 8;    // its n-blocks of 8 positions
@@ -154,14 +171,25 @@ constexpr int TILE_N = 2 * CHAIN_N;     // positions a tile's two chains cover
 constexpr int HALF = 16;                // windows of a half in each block of 32
 constexpr int TILE_STEP = TILE_N - HALF;  // positions a tile yields
 constexpr int N_MAX = 32;               // lanes a packed block stages: 64 rows / 2 halves
+constexpr int SHORT_LANES = 64;         // lanes a block of the short body: a row each
 
 // The bytes of shared memory the packed body takes: a_blocks blocks of 32
 // query windows of the 64 rows (HALF windows of Cp bytes each), the planes
 // (Cp bytes a window, for the chunk's tiles and the windows the last one
 // reads past its TILE_STEP positions), the chunk's packed bytes (each
 // segment's rounded up to 16) and the slots (8 bytes a segment and lane).
-long long packed_smem(int nc, int channels, int seg_win, int chunk_segs, int a_blocks) {
+// The short body (block_lanes SHORT_LANES; a_blocks 1): the query's nc
+// windows of the 64 rows, the planes of whole tiles and nc - 1 windows past
+// them, the packed bytes, and 64 slots a segment.
+long long packed_smem(int block_lanes, int nc, int channels, int seg_win, int chunk_segs,
+                      int a_blocks) {
   const long long cp = channels <= 32 ? 32 : 64;
+  if (block_lanes == SHORT_LANES) {
+    const long long tiles = ((long long)chunk_segs * seg_win + TILE_N - 1) / TILE_N;
+    return 64LL * nc * cp + cp * (tiles * TILE_N + nc - 1) +
+           chunk_segs * (((long long)seg_win * channels / 2 + 15) / 16 * 16) +
+           8LL * SHORT_LANES * chunk_segs;
+  }
   const long long tiles = ((long long)chunk_segs * seg_win + TILE_STEP - 1) / TILE_STEP;
   const long long n_blocks = (nc + 2 * HALF - 1) / (2 * HALF);
   return 64LL * HALF * cp * a_blocks +
@@ -170,6 +198,8 @@ long long packed_smem(int nc, int channels, int seg_win, int chunk_segs, int a_b
          8LL * N_MAX * chunk_segs;
 }
 
+// NT = 4: the body above, 32 lanes of two halves; NT = 8: the short body.
+template <int NT>
 __device__ __forceinline__ void packed_scan(unsigned char* smem,
                                             const signed char* __restrict__ queries, int lanes,
                                             int nc, int channels,
@@ -178,28 +208,37 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
                                             int seg_off, int chunk_segs, int a_blocks,
                                             int* __restrict__ best_out,
                                             int* __restrict__ first_out) {
+  constexpr bool SHORT = NT == SHORT_LANES / 8;
+  constexpr int LANES = SHORT ? SHORT_LANES : N_MAX;     // lanes a block
+  constexpr int STEP = SHORT ? TILE_N : TILE_STEP;       // positions a tile yields
   constexpr int NV = TILE_STEP / 8;          // n-blocks of 8 positions a tile yields
   const int cp = channels <= 32 ? 32 : 64;
   const int n_off = n_win - nc + 1;
   const int seg_win = seg_off + nc - 1;      // windows a segment holds
   const int pieces = (n_off + seg_off - 1) / seg_off;
   const int n_blocks = (nc + 2 * HALF - 1) / (2 * HALF);   // blocks of 32 query windows
-  const int tiles_max = (chunk_segs * seg_win + TILE_STEP - 1) / TILE_STEP;
-  // The last tile reads windows up to its last position + 32 (n_blocks - 1) + HALF - 1.
+  const int tiles_max = (chunk_segs * seg_win + STEP - 1) / STEP;
+  // The last tile reads windows up to its last position + 32 (n_blocks - 1) + HALF - 1
+  // (the short body: + nc - 1).
   const int plane_win =
-      (tiles_max - 1) * TILE_STEP + TILE_N + 2 * HALF * (n_blocks - 1) + HALF - 1;
+      SHORT ? tiles_max * TILE_N + nc - 1
+            : (tiles_max - 1) * TILE_STEP + TILE_N + 2 * HALF * (n_blocks - 1) + HALF - 1;
   const int plane = 16 * plane_win;          // bytes from one plane to the next
   const int seg_bytes = (seg_win * channels / 2 + 15) / 16 * 16;
-  const int a_bytes = 64 * HALF * cp;        // a block of 32 query windows, 64 rows
-  unsigned char* s_a = smem;                 // [a_blocks][HALF Cp / 16][64 rows][16]
+  // A block of 32 query windows, 64 rows (the short body: the query's nc windows).
+  const int a_bytes = 64 * (SHORT ? nc : HALF) * cp;
+  // s_a: [a_blocks][HALF Cp / 16][64 rows][16] (the short body: [nc Cp / 16][64 rows][16]).
+  unsigned char* s_a = smem;
   unsigned char* s_b = s_a + a_blocks * a_bytes;   // [Cp / 16][plane_win][16]
   unsigned char* s_p = s_b + cp * plane_win;       // [chunk_segs][seg_bytes]
-  long long* s_key = reinterpret_cast<long long*>(s_p + chunk_segs * seg_bytes);  // [seg][32]
+  long long* s_key = reinterpret_cast<long long*>(s_p + chunk_segs * seg_bytes);  // [seg][LANES]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int lane0 = blockIdx.y * N_MAX;
-  const int n_lanes = min(N_MAX, lanes - lane0);
-  const int my_lane = 8 * warp + g;          // the lane of this thread's rows
+  const int lane0 = blockIdx.y * LANES;
+  const int n_lanes = min(LANES, lanes - lane0);
+  // The lane of this thread's rows (the short body: of row 16 w + g; row 16 w
+  // + 8 + g holds lane my_lane + 8).
+  const int my_lane = (SHORT ? 16 : 8) * warp + g;
   const DivBy by_seg(seg_win);
 
   // Unit u of the launch: rows u * chunk_segs on, one chunk of a segment each
@@ -240,6 +279,27 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
   auto unpack = [&](const Chunk& k) {
     const int words = channels / 8;          // packed words a window
     const int n_q = k.ns * seg_win;
+    if constexpr (SHORT) {
+      // C a multiple of 32: a window's packed bytes are whole 16-byte loads,
+      // each unpacked into two planes (conflict-free, one division a window).
+      if (channels % 32 == 0) {
+        for (int q = threadIdx.x; q < n_q; q += THREADS) {
+          const int s = by_seg(q), w = q - s * seg_win;
+          const uint4* src = reinterpret_cast<const uint4*>(s_p + s * seg_bytes) + w * words / 4;
+          for (int u = 0; u < words / 4; ++u) {
+            const uint4 p4 = src[u];
+            int4 v0, v1;
+            unpack_word(p4.x, v0.x, v0.y);
+            unpack_word(p4.y, v0.z, v0.w);
+            unpack_word(p4.z, v1.x, v1.y);
+            unpack_word(p4.w, v1.z, v1.w);
+            *reinterpret_cast<int4*>(s_b + 2 * u * plane + 16 * q) = v0;
+            *reinterpret_cast<int4*>(s_b + (2 * u + 1) * plane + 16 * q) = v1;
+          }
+        }
+        return;
+      }
+    }
     for (int p = 0; 16 * p < channels; ++p)
       for (int q = threadIdx.x; q < n_q; q += THREADS) {
         const int s = by_seg(q), w = q - s * seg_win;
@@ -254,10 +314,25 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
 
   // Query blocks b0 .. b0 + a_blocks - 1 of the 64 rows into s_a: row m =
   // 16 w + 8 h + g is lane 8 w + g's windows 32 b + 16 h + i, zero past nc,
-  // past C and past n_lanes.
+  // past C and past n_lanes. The short body: row m is lane m's windows 0 ..
+  // nc - 1, zero past C and past n_lanes.
   const signed char* q_src = queries + (long long)lane0 * nc * channels;
   const int kq = cp / 16;                    // 16-byte columns of K a window
   auto stage_a = [&](int b0) {
+    if constexpr (SHORT) {
+      for (int i = threadIdx.x; i < nc * kq * 64; i += THREADS) {
+        const int m = i % 64, kc = i / 64;
+        const int u = kc % kq, j = kc / kq;
+        long long lo = 0, hi = 0;
+        if (m < n_lanes) {
+          const signed char* src = q_src + ((long long)m * nc + j) * channels + 16 * u;
+          if (16 * u < channels) lo = *reinterpret_cast<const long long*>(src);
+          if (16 * u + 8 < channels) hi = *reinterpret_cast<const long long*>(src + 8);
+        }
+        *reinterpret_cast<longlong2*>(s_a + 16 * i) = make_longlong2(lo, hi);
+      }
+      return;
+    }
     for (int i = threadIdx.x; i < a_blocks * HALF * kq * 64; i += THREADS) {
       const int m = i % 64, kc = i / 64;
       const int u = kc % kq, bi = kc / kq;   // bi: block and window of the half
@@ -280,12 +355,13 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
   for (int p = (channels + 15) / 16; p < kq; ++p)
     for (int q = threadIdx.x; q < plane_win; q += THREADS)
       *reinterpret_cast<int4*>(s_b + p * plane + 16 * q) = make_int4(0, 0, 0, 0);
-  for (int i = threadIdx.x; i < chunk_segs * N_MAX; i += THREADS) s_key[i] = NO_KEY;
+  for (int i = threadIdx.x; i < chunk_segs * LANES; i += THREADS) s_key[i] = NO_KEY;
   if (a_blocks >= n_blocks) stage_a(0);
 
   // The products of positions t0 .. t0 + TILE_N - 1 into d0 and d1: k-step s
   // of block b reads window i = s / (Cp / 32) of each half, bytes 32 (s % (Cp
-  // / 32)) on, and the planes at window t0 + 32 b + i.
+  // / 32)) on, and the planes at window t0 + 32 b + i (the short body: window
+  // i of the query, and the planes at window t0 + i).
   const int a_steps = HALF * cp / 32;        // k-steps a block of 32 windows
   const unsigned long long da0 = wgmma_desc(s_a, 64 * 16, 128);
   const unsigned long long db0 = wgmma_desc(s_b, plane, 128);
@@ -314,15 +390,24 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
     }
   };
 
-  // This thread's best of segment `cur` of the chunk, for lane my_lane.
+  // This thread's best of segment `cur` of the chunk, for lane my_lane (the
+  // short body: best_c1, best_p1 for lane my_lane + 8, too).
   int best_c = INT_MIN, best_p = 0, cur = -1;
+  int best_c1 = INT_MIN, best_p1 = 0;
   auto flush = [&](const Chunk& k) {
     long long key = best_c == INT_MIN ? NO_KEY
                                       : pack_key(best_c, k.o0 + best_p - cur * seg_win);
     key = max(key, __shfl_xor_sync(0xffffffffu, key, 1));
     key = max(key, __shfl_xor_sync(0xffffffffu, key, 2));
-    long long* slot = s_key + cur * N_MAX + my_lane;
+    long long* slot = s_key + cur * LANES + my_lane;
     if (t == 0) *slot = max(*slot, key);
+    if constexpr (SHORT) {
+      long long key1 = best_c1 == INT_MIN ? NO_KEY
+                                          : pack_key(best_c1, k.o0 + best_p1 - cur * seg_win);
+      key1 = max(key1, __shfl_xor_sync(0xffffffffu, key1, 1));
+      key1 = max(key1, __shfl_xor_sync(0xffffffffu, key1, 2));
+      if (t == 0) slot[8] = max(slot[8], key1);
+    }
   };
   // Column n = 8 nb + 2 t + e of the tile holds its sum in the register of
   // half 0 (d0 for nb < CHAIN_B, d1 after).
@@ -353,6 +438,73 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
     }
   };
 
+  // The short body's products of positions t0 .. t0 + TILE_N - 1 into d0
+  // and d1: k-step s reads the query's window i = s / (Cp / 32), bytes 32 (s %
+  // (Cp / 32)) on, and the planes at window t0 + i.
+  auto issue_short = [&](int t0) {
+    wgmma_fence();
+    fence_operand(d0);
+    fence_operand(d1);
+    for (int s = 0; s < nc * cp / 32; ++s) {
+      const int bw = t0 + (cp == 32 ? s : (s >> 1) + (s & 1) * upper);
+      wgmma_m64n96k32_s8(d0, da0 + 2 * 64 * s, db0 + bw, s);
+      wgmma_m64n96k32_s8(d1, da0 + 2 * 64 * s, db0 + bw + CHAIN_N, s);
+    }
+    wgmma_commit();
+  };
+  // Its walk over the segments a chain's positions meet: rows 16 w + g
+  // (d[4 nb + e]) and 16 w + 8 + g (d[4 nb + 2 + e]), column 8 nb + 2 t + e,
+  // in groups of 4 n-blocks (32 columns), a group only where it meets the
+  // segment's valid columns [ua, ub), masked only where it is not inside them.
+  // A visit keeps each row's best and its column (__vibmax_s32: the max, and
+  // whether the earlier one holds, so ties keep the first), then merges it.
+  auto take_chain = [&](const int (&d)[CHAIN_N / 2], int t0, const Chunk& k) {
+    const int s_lo = by_seg(t0), s_hi = min(by_seg(t0 + CHAIN_N - 1), k.ns - 1);
+    for (int s = s_lo; s <= s_hi; ++s) {
+      if (s != cur) {
+        if (cur >= 0) flush(k);
+        cur = s;
+        best_c = best_c1 = INT_MIN;
+      }
+      const int ua = max(s * seg_win - t0, 0);
+      const int ub = min(s * seg_win + k.n_valid - t0, CHAIN_N);
+      int m0 = INT_MIN, c0 = 0, m1 = INT_MIN, c1 = 0;   // columns less 2 t
+      auto keep = [&](int nb, int e, bool in) {
+        bool held;
+        m0 = __vibmax_s32(m0, in ? d[4 * nb + e] : INT_MIN, &held);
+        c0 = held ? c0 : 8 * nb + e;
+        m1 = __vibmax_s32(m1, in ? d[4 * nb + 2 + e] : INT_MIN, &held);
+        c1 = held ? c1 : 8 * nb + e;
+      };
+#pragma unroll
+      for (int nb0 = 0; nb0 < CHAIN_B; nb0 += 4) {
+        if (8 * nb0 + 32 <= ua || 8 * nb0 >= ub) continue;
+        if (ua <= 8 * nb0 && 8 * nb0 + 32 <= ub) {
+#pragma unroll
+          for (int nb = nb0; nb < nb0 + 4; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) keep(nb, e, true);
+        } else {
+#pragma unroll
+          for (int nb = nb0; nb < nb0 + 4; ++nb)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * nb + 2 * t + e;
+              keep(nb, e, c >= ua && c < ub);
+            }
+        }
+      }
+      if (m0 > best_c) {
+        best_c = m0;
+        best_p = t0 + 2 * t + c0;
+      }
+      if (m1 > best_c1) {
+        best_c1 = m1;
+        best_p1 = t0 + 2 * t + c1;
+      }
+    }
+  };
+
   for (long long u = blockIdx.x; u < units; u += gridDim.x)
     for (int piece = 0; piece < pieces; ++piece) {
       const Chunk k = chunk_at(u, piece);
@@ -366,20 +518,33 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
       else if (u + gridDim.x < units)
         stage(chunk_at(u + gridDim.x, 0));
 
-      const int tiles = (k.ns * seg_win + TILE_STEP - 1) / TILE_STEP;
-      for (int tl = 0; tl < tiles; ++tl) {
-        const int t0 = tl * TILE_STEP;
-        issue(t0);
-        wgmma_wait_all();
-        fence_operand(d0);
-        fence_operand(d1);
+      if constexpr (SHORT) {
+        const int tiles = (k.ns * seg_win + TILE_N - 1) / TILE_N;
+        for (int tl = 0; tl < tiles; ++tl) {
+          const int t0 = tl * TILE_N;
+          issue_short(t0);
+          wgmma_wait_all();
+          fence_operand(d0);
+          fence_operand(d1);
+          take_chain(d0, t0, k);
+          take_chain(d1, t0 + CHAIN_N, k);
+        }
+      } else {
+        const int tiles = (k.ns * seg_win + TILE_STEP - 1) / TILE_STEP;
+        for (int tl = 0; tl < tiles; ++tl) {
+          const int t0 = tl * TILE_STEP;
+          issue(t0);
+          wgmma_wait_all();
+          fence_operand(d0);
+          fence_operand(d1);
 #pragma unroll
-        for (int nb = 0; nb < NV; ++nb)      // corr(n) = D[h = 0][n] + D[h = 1][n + 16]
+          for (int nb = 0; nb < NV; ++nb)    // corr(n) = D[h = 0][n] + D[h = 1][n + 16]
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            sum(nb, e) += nb + 2 < CHAIN_B ? d0[4 * (nb + 2) + 2 + e]
-                                           : d1[4 * (nb + 2 - CHAIN_B) + 2 + e];
-        take(t0, k);
+            for (int e = 0; e < 2; ++e)
+              sum(nb, e) += nb + 2 < CHAIN_B ? d0[4 * (nb + 2) + 2 + e]
+                                             : d1[4 * (nb + 2 - CHAIN_B) + 2 + e];
+          take(t0, k);
+        }
       }
       if (cur >= 0) flush(k);
       cur = -1;
@@ -388,7 +553,7 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
       if (k.last)
         for (int i = threadIdx.x; i < k.ns * n_lanes; i += THREADS) {
           const int s = i % k.ns, l = i / k.ns;
-          long long* slot = s_key + s * N_MAX + l;
+          long long* slot = s_key + s * LANES + l;
           const long long key = *slot;
           *slot = NO_KEY;
           const long long out = (long long)(lane0 + l) * n_rows + k.row0 + s;
@@ -399,7 +564,7 @@ __device__ __forceinline__ void packed_scan(unsigned char* smem,
 }
 
 // NT lane tiles of 8 (the int8 body); PACKED rows (the packed body, above,
-// with NT = 4: its 32 lanes).
+// with NT = 4: its 32 lanes; the short body, specialized below, with NT = 8).
 template <int NT, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 coarse_kernel(const signed char* __restrict__ queries, int lanes, int n_lchunks, int nc,
@@ -409,8 +574,8 @@ coarse_kernel(const signed char* __restrict__ queries, int lanes, int n_lchunks,
               int* __restrict__ first_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (PACKED) {
-    packed_scan(smem, queries, lanes, nc, channels, db, row_bytes, n_win, n_rows, chunk_off,
-                chunk_segs, a_blocks, best_out, first_out);
+    packed_scan<NT>(smem, queries, lanes, nc, channels, db, row_bytes, n_win, n_rows, chunk_off,
+                    chunk_segs, a_blocks, best_out, first_out);
   } else {
     constexpr int LC = 8 * NT;                  // lanes a block stages
     const int cp = channels <= 32 ? 32 : 64;    // bytes a staged window holds (zeros past C)
@@ -587,6 +752,21 @@ coarse_kernel(const signed char* __restrict__ queries, int lanes, int n_lchunks,
   }
 }
 
+// The short body: its 64 lanes, held to the registers of three blocks an SM.
+template <>
+__global__ void __launch_bounds__(THREADS, 3)
+coarse_kernel<SHORT_LANES / 8, true>(const signed char* __restrict__ queries, int lanes,
+                                     int n_lchunks, int nc, int channels,
+                                     const signed char* __restrict__ db, long long row_bytes,
+                                     int n_win, const int* __restrict__ rows, int n_rows,
+                                     int rows_per_block, int chunk_off, int chunk_segs,
+                                     int a_blocks, int* __restrict__ best_out,
+                                     int* __restrict__ first_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  packed_scan<SHORT_LANES / 8>(smem, queries, lanes, nc, channels, db, row_bytes, n_win, n_rows,
+                               chunk_off, chunk_segs, a_blocks, best_out, first_out);
+}
+
 template <int NT, bool PACKED>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const signed char* queries,
                    int lanes, int n_lchunks, int nc, int channels, const signed char* db,
@@ -628,28 +808,37 @@ long long coarse_smem(int lanes, int nc, int channels, int chunk_off) {
 // The packed body: lanes in chunks of N_MAX over grid.y; rows in segments of
 // chunk_off offsets (a multiple of 8, or n_off or more: whole rows),
 // chunk_segs segments a chunk (1 for segments shorter than a row); a_blocks
-// blocks of 32 query windows staged at a time.
+// blocks of 32 query windows staged at a time. block_lanes, as the wrapper
+// chose it, names the body: N_MAX, or SHORT_LANES for the short body, which
+// takes queries of nc <= HALF windows only, and a_blocks 1.
 int packed_launch(const signed char* queries, int n_groups, int lanes, int nc, int channels,
                   const signed char* db, long long row_bytes, int n_win, const int* rows,
-                  int n_rows, int rows_per_block, int chunk_off, int chunk_segs, int a_blocks,
-                  int* best, int* first, cudaStream_t stream) {
+                  int n_rows, int rows_per_block, int chunk_off, int block_lanes,
+                  int chunk_segs, int a_blocks, int* best, int* first, cudaStream_t stream) {
   const int n_off = n_win - nc + 1;
   const int seg_off = min(chunk_off, n_off);
-  const int n_lchunks = (lanes + N_MAX - 1) / N_MAX;
+  const bool short_body = block_lanes == SHORT_LANES;
+  if (!short_body && block_lanes != N_MAX) return (int)cudaErrorInvalidValue;
+  const int n_lchunks = (lanes + block_lanes - 1) / block_lanes;
   if (rows != nullptr || n_groups != 1 || nc < 1 || row_bytes % 16 ||
       row_bytes < (long long)n_win * channels / 2 || seg_off < 1 || chunk_segs < 1 ||
-      a_blocks < 1 || (seg_off < n_off && (seg_off % 8 || chunk_segs != 1)) ||
-      n_lchunks > 65535)
+      a_blocks < 1 || (short_body && (a_blocks != 1 || nc > HALF)) ||
+      (seg_off < n_off && (seg_off % 8 || chunk_segs != 1)) || n_lchunks > 65535)
     return (int)cudaErrorInvalidValue;
   const int seg_win = seg_off + nc - 1;
-  const long long smem = packed_smem(nc, channels, seg_win, chunk_segs, a_blocks);
+  const long long smem = packed_smem(block_lanes, nc, channels, seg_win, chunk_segs, a_blocks);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   const int pieces = (n_off + seg_off - 1) / seg_off;
   const long long units = pieces == 1 ? (n_rows + chunk_segs - 1) / chunk_segs : n_rows;
-  return (int)launch<N_MAX / 8, true>(dim3((unsigned)units, n_lchunks), (size_t)smem, stream,
-                                      queries, lanes, n_lchunks, nc, channels, db, row_bytes,
-                                      n_win, rows, n_rows, rows_per_block, seg_off, chunk_segs,
-                                      a_blocks, best, first);
+  const dim3 grid((unsigned)units, n_lchunks);
+#define HPFW_PACKED_LAUNCH(LANES)                                                           \
+  launch<LANES / 8, true>(grid, (size_t)smem, stream, queries, lanes, n_lchunks, nc, channels, \
+                          db, row_bytes, n_win, rows, n_rows, rows_per_block, seg_off,         \
+                          chunk_segs, a_blocks, best, first)
+  const cudaError_t err =
+      short_body ? HPFW_PACKED_LAUNCH(SHORT_LANES) : HPFW_PACKED_LAUNCH(N_MAX);
+#undef HPFW_PACKED_LAUNCH
+  return (int)err;
 }
 
 }  // namespace
@@ -661,7 +850,8 @@ int packed_launch(const signed char* queries, int n_groups, int lanes, int nc, i
 // 1, one group; always so when packed). best, first: (n_groups * lanes,
 // n_rows). The int8 body: a block scans rows_per_block rows, each in chunks
 // of chunk_off offsets (a multiple of 48); chunk_segs and a_blocks are not
-// read. The packed body: see packed_launch; rows_per_block is not read.
+// read. packed: 0 for the int8 body, else the packed body's lanes a block
+// (see packed_launch); rows_per_block is not read there.
 extern "C" int hpfw_coarse_scan(const signed char* queries, int n_groups, int lanes,
                                 int nc, int channels, const signed char* db,
                                 long long row_bytes, int n_win, const int* rows,
@@ -674,8 +864,8 @@ extern "C" int hpfw_coarse_scan(const signed char* queries, int n_groups, int la
     return (int)cudaErrorInvalidValue;
   if (packed)
     return packed_launch(queries, n_groups, lanes, nc, channels, db, row_bytes, n_win, rows,
-                         n_rows, rows_per_block, chunk_off, chunk_segs, a_blocks, best, first,
-                         stream);
+                         n_rows, rows_per_block, chunk_off, packed, chunk_segs, a_blocks, best,
+                         first, stream);
   const int nt = lanes <= 8 ? 1 : 2;
   const int n_lchunks = (lanes + 8 * nt - 1) / (8 * nt);
   if (row_bytes % 4 || row_bytes < (long long)n_win * channels || rows_per_block <= 0 ||

@@ -42,8 +42,10 @@ from .coarse import correlation_blocks
 # each query as the 64 rows of its wgmma products, and streams segments of
 # rows back to back, PACKED_STEP positions a tile of PACKED_TILE, at most
 # MAX_CHUNK_SEGS segments a chunk, within PACKED_SMEM bytes (three blocks an
-# SM) where it can. A query too long for even one chunk within the MAX_SMEM
-# a block may use raises.
+# SM) where it can. A query of at most PACKED_HALF windows takes the short
+# body instead: PACKED_SHORT_LANES lanes a block, one row of the products
+# each, and tiles that yield all PACKED_TILE positions. A query too long for
+# even one chunk within the MAX_SMEM a block may use raises.
 SCAN_WARPS = 4
 OFFSET_GROUP = 48            # offsets a warp scans at a time: 3 tiles of 16
 ROWS_PER_BLOCK = 16
@@ -51,6 +53,7 @@ PACKED_LANES = 32
 PACKED_TILE = 192            # window positions a tile's two chains of products cover
 PACKED_STEP = 176            # positions a tile yields: half 1 is 16 on
 PACKED_HALF = 16             # query windows of a half in each block of 32
+PACKED_SHORT_LANES = 64      # lanes a block of the short body (nc <= PACKED_HALF)
 MAX_CHUNK_SEGS = 64
 SCAN_SMEM = 110 * 1024
 PACKED_SMEM = 74 * 1024      # three packed blocks an SM
@@ -152,6 +155,14 @@ class PackedGeometry(NamedTuple):
     chunk_segs: int      # segments a chunk
     a_blocks: int        # blocks of 32 query windows staged at a time
     smem: int            # shared-memory bytes a block
+    lanes: int           # lanes a block: the body, by packed_lanes
+
+
+def packed_lanes(nc: int) -> int:
+    """The packed body a query of nc windows takes, by its lanes a block:
+    PACKED_SHORT_LANES (the short body) for nc <= PACKED_HALF, else
+    PACKED_LANES. The launch passes it on, and the kernel library checks it."""
+    return PACKED_SHORT_LANES if nc <= PACKED_HALF else PACKED_LANES
 
 
 def packed_smem(nc: int, c: int, seg_win: int, chunk_segs: int, a_blocks: int) -> int:
@@ -160,22 +171,30 @@ def packed_smem(nc: int, c: int, seg_win: int, chunk_segs: int, a_blocks: int) -
     bytes each, Cp = 32 or 64, c rounded up); Cp bytes a window for the
     chunk's tiles, PACKED_STEP positions apart, and the windows the last one
     reads past them; each segment's seg_win * c / 2 packed bytes, rounded up
-    to 16; an 8-byte key a segment and lane."""
+    to 16; an 8-byte key a segment and lane. The short body (packed_lanes,
+    a_blocks 1): the query's nc windows for the 64 rows, the
+    chunk's tiles PACKED_TILE positions apart and nc - 1 windows past them,
+    the packed bytes, and PACKED_SHORT_LANES keys a segment."""
     cp = 32 if c <= 32 else 64
+    packed = chunk_segs * -(-(seg_win * c // 2) // 16) * 16
+    if packed_lanes(nc) == PACKED_SHORT_LANES:
+        tiles = -(-chunk_segs * seg_win // PACKED_TILE)
+        return (64 * nc * cp + cp * (tiles * PACKED_TILE + nc - 1) + packed
+                + 8 * PACKED_SHORT_LANES * chunk_segs)
     tiles = -(-chunk_segs * seg_win // PACKED_STEP)
     n_blocks = -(-nc // (2 * PACKED_HALF))
     return (64 * PACKED_HALF * cp * a_blocks
             + cp * ((tiles - 1) * PACKED_STEP + PACKED_TILE + 2 * PACKED_HALF * (n_blocks - 1)
                     + PACKED_HALF - 1)
-            + chunk_segs * -(-(seg_win * c // 2) // 16) * 16 + 8 * PACKED_LANES * chunk_segs)
+            + packed + 8 * PACKED_LANES * chunk_segs)
 
 
 def packed_geometry(n_win: int, nc: int, c: int) -> PackedGeometry:
     """The packed body's geometry for rows of n_win windows and a query of nc
-    windows of c channels; a launch takes ceil(lanes / PACKED_LANES) blocks
-    on grid.y, so at catalog shapes each row is read and unpacked once. The
-    query's blocks of 32 windows are staged once where they fit (within
-    PACKED_SMEM, three blocks an SM, else MAX_SMEM) beside one segment of
+    windows of c channels; a launch takes ceil(lanes / geo.lanes) blocks on
+    grid.y (packed_lanes), so at catalog shapes each row is read and unpacked
+    once. The query's blocks of 32 windows are staged once where they fit
+    (within PACKED_SMEM, three blocks an SM, else MAX_SMEM) beside one segment of
     min(n_win, nc + 7) windows, else a_blocks at a time. Rows are segments
     laid back to back: a whole row each (seg_off = n_off) where one fits, the
     chunk_segs (up to MAX_CHUNK_SEGS) that scan the fewest positions a
@@ -185,6 +204,8 @@ def packed_geometry(n_win: int, nc: int, c: int) -> PackedGeometry:
     n_off = n_win - nc + 1
     s_min = min(n_win, nc + 7)
     n_blocks = -(-nc // (2 * PACKED_HALF))
+    lanes = packed_lanes(nc)
+    step = PACKED_TILE if lanes == PACKED_SHORT_LANES else PACKED_STEP
     for budget, a_blocks in ([(PACKED_SMEM, n_blocks)]
                              + [(MAX_SMEM, a) for a in range(n_blocks, 0, -1)]):
         if packed_smem(nc, c, s_min, 1, a_blocks) <= budget:
@@ -199,12 +220,12 @@ def packed_geometry(n_win: int, nc: int, c: int) -> PackedGeometry:
 
     if smem(n_win, 1) <= budget:
         fit = [r for r in range(1, MAX_CHUNK_SEGS + 1) if smem(n_win, r) <= budget]
-        r = min(fit, key=lambda r: (Fraction(-(-r * n_win // PACKED_STEP), r), -r))
-        return PackedGeometry(n_off, r, a_blocks, smem(n_win, r))
+        r = min(fit, key=lambda r: (Fraction(-(-r * n_win // step), r), -r))
+        return PackedGeometry(n_off, r, a_blocks, smem(n_win, r), lanes)
     seg_off = (n_off - 1) // 8 * 8
     while smem(seg_off + nc - 1, 1) > budget:
         seg_off -= 8
-    return PackedGeometry(seg_off, 1, a_blocks, smem(seg_off + nc - 1, 1))
+    return PackedGeometry(seg_off, 1, a_blocks, smem(seg_off + nc - 1, 1), lanes)
 
 
 def row_chunks(n_off: int, chunk_off: int) -> list[tuple[int, int]]:
@@ -290,7 +311,7 @@ def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
     if packed:
         geo = packed_geometry(lc_true, nc, c)
         chunk_off, chunk_segs, a_blocks = geo.seg_off, geo.chunk_segs, geo.a_blocks
-        block_lanes = PACKED_LANES
+        block_lanes = geo.lanes
     else:
         chunk_off, _ = scan_geometry(lc_true, nc, c, lanes)
         chunk_segs, a_blocks, block_lanes = 0, 0, (8 if lanes <= 8 else 16)
@@ -303,8 +324,8 @@ def _launch(name: str, query_cs: torch.Tensor, db_flat: torch.Tensor,
                       query_cs.data_ptr(), n_groups, lanes, nc, c,
                       db_flat.data_ptr(), lcw, lc_true,
                       rows.data_ptr() if rows is not None else None, n_rows,
-                      ROWS_PER_BLOCK, chunk_off, int(packed), chunk_segs, a_blocks,
-                      best.data_ptr(), first.data_ptr())
+                      ROWS_PER_BLOCK, chunk_off, block_lanes if packed else 0, chunk_segs,
+                      a_blocks, best.data_ptr(), first.data_ptr())
     return best, first
 
 

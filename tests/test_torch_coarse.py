@@ -201,13 +201,23 @@ def _chunked_scan(qs, flat, lc_true, lanes):
     return _keys_to_results(key)
 
 
+def _tile_step(geo):
+    """Window positions a tile of the packed body yields: all PACKED_TILE in
+    the short body (geo.lanes PACKED_SHORT_LANES), else PACKED_STEP."""
+    return (coarse_scan.PACKED_TILE if geo.lanes == coarse_scan.PACKED_SHORT_LANES
+            else coarse_scan.PACKED_STEP)
+
+
 def _packed_stream_scan(qs, flat, lc_true, seed=0):
     """Plain emulation of the packed body (csrc/coarse.cu packed_scan): the
-    lanes in blocks of PACKED_LANES (zero lanes past them); each row cut into
+    lanes in blocks of geo.lanes (zero lanes past them: PACKED_LANES, or the
+    short body's PACKED_SHORT_LANES for a query of up to PACKED_HALF
+    windows); each row cut into
     segments of seg_off offsets and seg_off + Nc - 1 windows, chunk_segs
     whole rows a chunk or one segment of a long row, laid back to back in a
     stream whose other windows hold garbage (stale bytes in the kernel); every
-    window position of the chunk's tiles (PACKED_STEP positions each)
+    window position of the chunk's tiles (_tile_step positions each: the
+    short body yields all PACKED_TILE)
     scanned, those past a segment's valid offsets masked, and the 64-bit keys
     merged per row and lane across segments."""
     g, nc, c = qs.shape
@@ -227,10 +237,12 @@ def _packed_stream_scan(qs, flat, lc_true, seed=0):
     else:
         assert geo.chunk_segs == 1 and geo.seg_off % 8 == 0
         chunks = [[(r, o0, o1)] for r in range(t) for o0, o1 in pieces]
-    q = torch.nn.functional.pad(qs, (0, 0, 0, 0, 0, -g % coarse_scan.PACKED_LANES))
+    assert geo.lanes == (coarse_scan.PACKED_SHORT_LANES if nc <= coarse_scan.PACKED_HALF
+                         else coarse_scan.PACKED_LANES)
+    q = torch.nn.functional.pad(qs, (0, 0, 0, 0, 0, -g % geo.lanes))
     key = torch.full((q.shape[0], t), -2 ** 63, dtype=torch.int64)
     rng = np.random.default_rng(seed)
-    step = coarse_scan.PACKED_STEP
+    step = _tile_step(geo)
     for chunk in chunks:
         tiles = -(-len(chunk) * seg_win // step)
         stream = torch.from_numpy(rng.integers(-8, 8, (tiles * step + nc - 1, c)).astype(np.int8))
@@ -287,9 +299,9 @@ def test_long_row_chunks_merge_to_the_whole_scan(lc, c, lanes, packed):
 def _tile_edges(geo, n_win, n_off, nc, rows):
     """Ties in rows of a chunk: (row, (first offset, equal later offset)),
     the first at a tile's last position, at a tile's first, or the later one
-    at a tile's first, in turn where the row has them (tiles of PACKED_STEP
+    at a tile's first, in turn where the row has them (tiles of _tile_step
     positions of the packed stream)."""
-    tile = coarse_scan.PACKED_STEP
+    tile = _tile_step(geo)
     plants = []
     for r in rows:
         base = (r % geo.chunk_segs) * n_win
@@ -305,7 +317,8 @@ def _tile_edges(geo, n_win, n_off, nc, rows):
 
 
 @pytest.mark.parametrize("c,lc,nc,lanes", [
-    (32, 161, 26, 32), (64, 161, 26, 8), (8, 40, 5, 42), (24, 161, 9, 2)])
+    (32, 161, 26, 32), (64, 161, 26, 8), (8, 40, 5, 42), (24, 161, 9, 2), (32, 161, 7, 65),
+    (32, 161, 16, 3), (64, 161, 7, 3)])
 def test_packed_stream_of_whole_rows_equals_the_scan(c, lc, nc, lanes):
     """The packed body's stream of whole rows (chunk_segs a chunk, the rows
     not a multiple of it): equal to coarse_scan_batch_ref with peaks at the
@@ -359,6 +372,12 @@ def test_rows_of_common_length_are_one_chunk():
     geo = coarse_scan.packed_geometry(161, 26, 64)
     assert geo.seg_off == 136 and geo.chunk_segs > 1 and geo.a_blocks == 1
     assert coarse_scan.PACKED_LANES == 32
+    assert geo.lanes == coarse_scan.PACKED_LANES
+    # A stream's 128-print ring (7 windows) takes the short body: 64 lanes a
+    # block, whole rows, three blocks an SM.
+    geo = coarse_scan.packed_geometry(161, 7, 32)
+    assert coarse_scan.PACKED_SHORT_LANES == 64 and geo.lanes == coarse_scan.PACKED_SHORT_LANES
+    assert geo.seg_off == 155 and geo.chunk_segs > 1 and geo.smem <= coarse_scan.PACKED_SMEM
 
 
 @pytest.mark.parametrize("c", [8, 16, 24, 32, 40, 48, 56, 64])
@@ -368,9 +387,12 @@ def test_packed_geometry_fits_shared_memory(c):
     fits, else segments of a multiple of 8 offsets one a chunk; the query's
     blocks of 32 windows staged at once where they fit, else in turns.
     Queries as long as the int8 body takes fit too, and a 10 s query against
-    60 s rows of 8-32 channels fits two blocks an SM."""
+    60 s rows of 8-32 channels fits two blocks an SM. Queries of up to
+    PACKED_HALF windows take the short body (64 lanes a block, the whole
+    query staged, tiles that yield all their positions), and a stream's
+    7-window ring against 60 s rows of 8-32 channels fits three an SM."""
     for lc, nc in ((161, 26), (40, 5), (26, 26), (700, 9), (3000, 26), (5000, 26), (3000, 7),
-                   (161, 120), (1000, 200), (3000, 377)):
+                   (161, 120), (1000, 200), (3000, 377), (161, 7), (161, 16), (161, 17)):
         try:
             coarse_scan.scan_geometry(lc, nc, c, 1)
         except ValueError:                   # past what the int8 body takes
@@ -388,5 +410,14 @@ def test_packed_geometry_fits_shared_memory(c):
             assert geo.seg_off == n_off
         if (lc, nc) == (161, 26) and c <= 32:
             assert geo.smem <= coarse_scan.SCAN_SMEM and geo.seg_off == n_off
+        short = nc <= coarse_scan.PACKED_HALF               # the short body: 64 lanes a block
+        assert geo.lanes == (coarse_scan.PACKED_SHORT_LANES if short else coarse_scan.PACKED_LANES)
+        assert geo.lanes == coarse_scan.packed_lanes(nc)
+        assert _tile_step(geo) == (coarse_scan.PACKED_TILE if short else coarse_scan.PACKED_STEP)
+        assert not short or geo.a_blocks == 1
+        if (lc, nc) == (161, 7) and c <= 32:                # three blocks an SM
+            assert geo.smem <= coarse_scan.PACKED_SMEM and geo.seg_off == n_off
     for lanes, blocks in ((1, 1), (2, 1), (32, 1), (33, 2), (42, 2), (126, 4)):
         assert -(-lanes // coarse_scan.PACKED_LANES) == blocks
+    for lanes, blocks in ((1, 1), (63, 1), (64, 1), (65, 2), (512, 8)):
+        assert -(-lanes // coarse_scan.PACKED_SHORT_LANES) == blocks

@@ -10,6 +10,7 @@ Imports nothing of jax or hpfw_tpu.
 
 import dataclasses
 import functools
+import re
 import threading
 import time
 import warnings
@@ -392,8 +393,9 @@ def _tile_ties(geo, n_win, n_off, nc, rows):
     """Ties in rows of a packed chunk: (row, (first offset, equal later
     offset)), the first at a tile's last position, at a tile's first, or the
     later one at a tile's first, in turn where the row has them (tiles of
-    PACKED_STEP stream positions)."""
-    tile = coarse_scan.PACKED_STEP
+    PACKED_TILE stream positions in the short body, else PACKED_STEP)."""
+    tile = (coarse_scan.PACKED_TILE if geo.lanes == coarse_scan.PACKED_SHORT_LANES
+            else coarse_scan.PACKED_STEP)
     plants = []
     for r in rows:
         base = (r % geo.chunk_segs) * n_win
@@ -413,15 +415,22 @@ def _tile_ties(geo, n_win, n_off, nc, rows):
     (64, 161, 26, 8), (64, 161, 26, 32), (8, 40, 5, 42), (24, 161, 9, 16), (24, 161, 9, 32)])
 def test_packed_coarse_kernel_matches_plain_and_int8(dev, c, lc, nc, lanes):
     """Packed K4 == its plain version == int8 K4 on the unpacked rows, exactly:
-    2-42 lanes (42 past PACKED_LANES: two blocks on grid.y), C = 8-64 (C = 24
-    takes the odd packed-word path), 203 rows (not a multiple of a chunk's),
+    2-42 lanes (26 windows take the body of two halves, and at 42 lanes, past
+    PACKED_LANES, two blocks of it on grid.y; 5 and 9 windows take the short
+    body, one 64-lane block: its multi-block cases are in
+    test_packed_short_body_matches_plain_and_int8, as are the long body's at
+    17 windows and 64-65 lanes, and test_packed_coarse_kernel_long_query
+    runs it at 42 lanes over rows in segments), C = 8-64 (C = 24 takes the
+    odd packed-word path),
+    203 or 204 rows (not a multiple of a chunk's),
     ties at the first and last offset of a tile of the stream, a peak at a
     row's last valid offset before a row that matches at its first, an
     all-negative row whose positions past n_off run into such a row, rows
     zero past their track's end and equal rows."""
     rng = np.random.default_rng(100 + c + lc + lanes)
     geo = coarse_scan.packed_geometry(lc, nc, c)
-    n_off, t = lc - nc + 1, 203
+    n_off = lc - nc + 1
+    t = 203 + (203 % geo.chunk_segs == 0)
     assert geo.seg_off == n_off and t % geo.chunk_segs
     qs = rng.choice([-1, 1], (lanes, nc, c)).astype(np.int8)
     qs[0] = 1
@@ -484,6 +493,85 @@ def test_packed_coarse_kernel_long_query(dev, lc, nc, c, lanes):
         assert torch.equal(a, b)
     assert int(got[1][lanes - 1, 1]) == lc - nc - 3
     assert int(got[0][0, 2]) == -nc * c and int(got[1][0, 2]) == 0
+
+
+@pytest.mark.parametrize("lc,nc,c,lanes", [
+    (161, 1, 64, 1), (161, 3, 8, 63), (161, 7, 32, 512), (161, 7, 64, 65), (161, 16, 32, 64),
+    (161, 16, 8, 1), (161, 17, 32, 65), (3000, 1, 32, 64), (3000, 3, 32, 512),
+    (3000, 7, 8, 65), (3000, 16, 64, 63), (3000, 17, 64, 64)])
+def test_packed_short_body_matches_plain_and_int8(dev, lc, nc, c, lanes):
+    """The short packed body (queries of up to PACKED_HALF windows, 64 lanes a
+    block; nc = 17 the body of two halves) == its plain version == int8 K4 on
+    the unpacked rows, exactly: nc 1-17, 1-512 lanes (either side of a block
+    of 64), C = 8-64, rows of 161 windows (whole rows, several a chunk; ties
+    at the edges of its tiles) and of 3,000 (segments; a tie across a segment
+    boundary), an all-negative row and rows zero past their track's end."""
+    rng = np.random.default_rng(lc + nc + c + lanes)
+    geo = coarse_scan.packed_geometry(lc, nc, c)
+    n_off = lc - nc + 1
+    short = nc <= coarse_scan.PACKED_HALF
+    assert geo.lanes == (coarse_scan.PACKED_SHORT_LANES if short else coarse_scan.PACKED_LANES)
+    whole = geo.seg_off == n_off
+    assert whole == (lc == 161)
+    t = 2 * geo.chunk_segs + 9 if whole else 24
+    qs = rng.choice([-1, 1], (lanes, nc, c)).astype(np.int8)
+    qs[0] = 1
+    d = rng.choice([-1, 1], (t, lc, c)).astype(np.int8)
+    for i, ln in enumerate(rng.integers(nc, lc + 1, size=t)):
+        d[i, ln:] = 0
+    full = 6 + 2 * geo.chunk_segs if whole else 6          # rows of full length
+    d[:full] = rng.choice([-1, 1], (full, lc, c))
+    if whole:
+        ties = _tile_ties(geo, lc, n_off, nc, range(6, full))
+        assert len(ties) >= 3
+    else:
+        bp = geo.seg_off                                      # the first segment boundary
+        ties = [(5, (bp - 30, bp + 5))]                       # a tie across it
+    for r, offs in ties:
+        for o in offs:
+            d[r, o:o + nc] = qs[-1]
+    d[1, n_off - 1:] = 1                                      # lane 0: the last valid offset
+    d[2, :nc] = 1                                             # the next row matches at 0
+    d[3] = -1                                                 # all negative for lane 0
+    d[4, :nc] = 1
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d)).to(dev)
+    packed = coarse_scan.pack_coarse_nibbles(flat)
+    q = torch.from_numpy(qs).to(dev)
+    got = coarse_scan.coarse_scan_batch_packed_kernel(q, packed, lc_true=lc)
+    want = coarse_scan.coarse_scan_batch_packed_ref(q, packed, lc_true=lc)
+    int8 = coarse_scan.coarse_scan_batch_kernel(q, flat, lc_true=lc)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(got, int8):
+        assert torch.equal(a, b)
+    assert int(got[1][0, 1]) == n_off - 1 and int(got[1][0, 2]) == 0
+    assert int(got[0][0, 3]) == -nc * c and int(got[1][0, 3]) == 0
+    assert int(got[0][0, 4]) == nc * c
+    for r, offs in ties:
+        assert int(got[0][lanes - 1, r]) == nc * c and int(got[1][lanes - 1, r]) == offs[0]
+
+
+def test_packed_body_is_chosen_by_the_query_length(dev):
+    """One pass-1 launch a call, named as the roofline reads it: the short
+    body, coarse_kernel<8, true>, for queries of up to PACKED_HALF windows,
+    and coarse_kernel<4, true> for 17 and 26."""
+    rng = np.random.default_rng(23)
+    lc = 161
+    d = rng.choice([-1, 1], (50, lc, 32)).astype(np.int8)
+    flat = coarse_scan.flatten_coarse(torch.from_numpy(d)).to(dev)
+    packed = coarse_scan.pack_coarse_nibbles(flat)
+    for nc in (1, 7, 16, 17, 26):
+        q = torch.from_numpy(rng.choice([-1, 1], (70, nc, 32)).astype(np.int8)).to(dev)
+        coarse_scan.coarse_scan_batch_packed_kernel(q, packed, lc_true=lc)   # built and warm
+        torch.cuda.synchronize()
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            coarse_scan.coarse_scan_batch_packed_kernel(q, packed, lc_true=lc)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if re.search(r"\bcoarse_kernel<\d+, true>", e.name)]
+        body = f"coarse_kernel<{8 if nc <= coarse_scan.PACKED_HALF else 4}, true>"
+        assert len(names) == 1 and body in names[0], (nc, names)
 
 
 @pytest.mark.parametrize("lc,c,nc,lanes", [
